@@ -1,0 +1,70 @@
+"""`Pytree.dataclass` on `torch.utils._pytree`.
+
+Counterpart of `genjax_tpu/core/pytree.py`. A dataclass declared with
+`Pytree.dataclass` is registered as a pytree node: its dynamic fields are
+children (tensors, nested pytrees), and fields declared with
+`Pytree.static()` live in the node's context, out of the leaves, so a
+`tree_map` over a trace never touches a generative function's source or a
+particle count.
+"""
+
+import dataclasses
+from typing import Any, TypeVar
+
+import torch.utils._pytree as pytree
+
+C = TypeVar("C", bound=type)
+
+_STATIC_MARK = "genjax_tpu_torch_static"
+
+
+class Pytree:
+    """Base of every structured value in the port: traces, choice maps,
+    selections, generative functions and particle collections."""
+
+    @staticmethod
+    def dataclass(cls: C | None = None, /, *, match_args: bool = True) -> C:
+        def wrap(kls):
+            dkls = dataclasses.dataclass(kls, match_args=match_args, eq=False, repr=False)
+            fields = dataclasses.fields(dkls)
+            dyn_names = tuple(f.name for f in fields if not f.metadata.get(_STATIC_MARK))
+            static_names = tuple(f.name for f in fields if f.metadata.get(_STATIC_MARK))
+
+            def flatten(obj):
+                children = [getattr(obj, name) for name in dyn_names]
+                context = tuple(getattr(obj, name) for name in static_names)
+                return children, context
+
+            def unflatten(children, context):
+                obj = object.__new__(dkls)
+                for name, val in zip(dyn_names, children):
+                    object.__setattr__(obj, name, val)
+                for name, val in zip(static_names, context):
+                    object.__setattr__(obj, name, val)
+                return obj
+
+            pytree.register_pytree_node(
+                dkls,
+                flatten,
+                unflatten,
+                serialized_type_name=f"{dkls.__module__}.{dkls.__qualname__}",
+            )
+            return dkls
+
+        if cls is None:
+            return wrap  # type: ignore[return-value]
+        return wrap(cls)
+
+    @staticmethod
+    def static(**kwargs) -> Any:
+        """A field kept in the node's context, out of the leaves."""
+        md = dict(kwargs.pop("metadata", {}) or {})
+        md[_STATIC_MARK] = True
+        return dataclasses.field(metadata=md, **kwargs)
+
+    def __repr__(self) -> str:
+        parts = [f"{f.name}={getattr(self, f.name)!r}" for f in dataclasses.fields(self)]
+        return f"{type(self).__name__}({', '.join(parts)})"
+
+
+tree_map = pytree.tree_map

@@ -1,0 +1,136 @@
+"""The distributions of the particle path: `normal`, `uniform`, `beta`, `flip`.
+
+Counterpart of the same four in `genjax_tpu/distributions/library.py`,
+with its parameterizations and its support semantics: a value outside
+the support scores exactly `-inf` (`_guard_support`). Samplers draw from
+a `torch.Generator` on the generator's device; with a particle count `n`
+a site draws `broadcast_shapes((n,), parameter shapes)` values, so a
+literal parameter and an `(n,)` particle column both work.
+
+The other distributions of the JAX library come later.
+"""
+
+import math
+
+import torch
+
+from genjax_tpu_torch.core.typing import host_scalar, sample_shape
+from genjax_tpu_torch.distributions.distribution import exact_density
+from genjax_tpu_torch.distributions.mathx import betaln, log, xlog1py, xlogy
+
+_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+
+
+def _guard_support(in_support, v, safe, lp_fn):
+    """Score `-inf` outside the support instead of NaN or a wrong finite
+    value. The formula is evaluated at `safe` outside the support, so it
+    never sees an out-of-support value."""
+    vs = torch.where(in_support, v, safe)
+    return torch.where(in_support, lp_fn(vs), -math.inf)
+
+
+def _rand(rng, shape):
+    return torch.rand(shape, generator=rng, device=rng.device)
+
+
+# -- normal ----------------------------------------------------------------
+
+
+def _normal_sample(rng, loc, scale, n=None):
+    eps = torch.randn(sample_shape(n, loc, scale), generator=rng, device=rng.device)
+    return loc + scale * eps
+
+
+def _normal_logpdf(v, loc, scale):
+    z = (v - loc) / scale
+    return -0.5 * z * z - log(scale) - _HALF_LOG_2PI
+
+
+normal = exact_density(_normal_sample, _normal_logpdf, "normal")
+
+
+# -- uniform ---------------------------------------------------------------
+
+
+def _uniform_sample(rng, low=0.0, high=1.0, n=None):
+    return low + (high - low) * _rand(rng, sample_shape(n, low, high))
+
+
+def _uniform_logpdf(v, low=0.0, high=1.0):
+    in_support = (v >= low) & (v <= high)
+    return torch.where(in_support, -log(high - low), -math.inf)
+
+
+uniform = exact_density(_uniform_sample, _uniform_logpdf, "uniform")
+
+
+# -- beta ------------------------------------------------------------------
+
+
+def _host_small_int(v, limit: int) -> int | None:
+    """`v` as an int when the host can read it for free and it is an
+    integer in [1, limit]; None otherwise."""
+    fv = host_scalar(v)
+    if fv is not None and fv.is_integer() and 1.0 <= fv <= limit:
+        return int(fv)
+    return None
+
+
+def _beta_sample(rng, concentration1, concentration0, n=None):
+    shape = sample_shape(n, concentration1, concentration0)
+    # Order-statistic fast path: for integer (a, b) with a + b <= 9,
+    # Beta(a, b) is the a-th smallest of a + b - 1 uniforms; Beta(2, 2) is
+    # the middle of three. The concentrations are read on the host only
+    # when that is free (Python numbers, 0-d CPU tensors).
+    a = _host_small_int(concentration1, 8)
+    b = _host_small_int(concentration0, 8)
+    if a is not None and b is not None and a + b <= 9:
+        k = a + b - 1
+        if k == 1:
+            return _rand(rng, shape)
+        u = _rand(rng, tuple(shape) + (k,))
+        return torch.sort(u, dim=-1).values[..., a - 1]
+    # Otherwise the gamma ratio G1 / (G1 + G2).
+    c1 = torch.as_tensor(concentration1, dtype=torch.float32, device=rng.device).expand(shape)
+    c0 = torch.as_tensor(concentration0, dtype=torch.float32, device=rng.device).expand(shape)
+    g1 = torch._standard_gamma(c1.contiguous(), generator=rng)
+    g0 = torch._standard_gamma(c0.contiguous(), generator=rng)
+    return g1 / (g1 + g0)
+
+
+def _beta_logpdf(v, concentration1, concentration0):
+    # Closed [0, 1]: xlogy / xlog1py give the boundary limits; the guard
+    # handles values outside.
+    return _guard_support(
+        (v >= 0.0) & (v <= 1.0),
+        v,
+        0.5,
+        lambda vs: xlogy(concentration1 - 1.0, vs)
+        + xlog1py(concentration0 - 1.0, -vs)
+        - betaln(concentration1, concentration0),
+    )
+
+
+beta = exact_density(_beta_sample, _beta_logpdf, "beta")
+
+
+# -- flip ------------------------------------------------------------------
+
+
+def _flip_sample(rng, p, n=None):
+    return _rand(rng, sample_shape(n, p)) < p
+
+
+def _flip_logpdf(v, p):
+    vf = v.to(torch.float32)
+    return torch.where(
+        (vf == 0.0) | (vf == 1.0),
+        xlogy(vf, p) + xlog1py(1.0 - vf, -p),
+        -math.inf,
+    )
+
+
+flip = exact_density(_flip_sample, _flip_logpdf, "flip")
+
+
+__all__ = ["beta", "flip", "normal", "uniform"]

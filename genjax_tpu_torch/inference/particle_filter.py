@@ -1,0 +1,71 @@
+"""Bootstrap particle filter for state-space models built from the GFI.
+
+Counterpart of `genjax_tpu/inference/particle_filter.py::BootstrapFilter`
+with systematic resampling. Each step runs the step model's `importance`
+once over all K particles (a leading particle axis, not a loop), then the
+ESS gate, then systematic resampling and LML accumulation when the gate
+fires. The JAX `collect=` and `model_args=` hooks come later.
+"""
+
+import math
+from typing import Any
+
+import torch
+
+from genjax_tpu_torch.core.choice_map import ChoiceMap
+from genjax_tpu_torch.core.gather import take_rows
+from genjax_tpu_torch.core.gfi import GenerativeFunction
+from genjax_tpu_torch.core.pytree import Pytree
+from genjax_tpu_torch.inference.smc import ess, systematic_resample
+from genjax_tpu_torch.ops import logsumexp
+
+
+@Pytree.dataclass
+class BootstrapFilter(Pytree):
+    """Particle filter over a generative step model.
+
+    `step_model(z_prev, t)` traces the new latent state (its return value)
+    and the observation at `obs_addr`; `init_model()` traces the initial
+    state the same way.
+    """
+
+    step_model: GenerativeFunction[Any]
+    init_model: GenerativeFunction[Any]
+    n_particles: int = Pytree.static()
+    obs_addr: str = Pytree.static(default="y")
+    ess_threshold: float = Pytree.static(default=0.5)
+
+    def run(self, rng: torch.Generator, observations: torch.Tensor) -> tuple[torch.Tensor, Any]:
+        """Filter the observation sequence (leading time axis, on the
+        generator's device); returns (log marginal likelihood estimate,
+        final particle states, equally weighted).
+
+        Resampling is adaptive: it fires when ESS < ess_threshold * K.
+        Weights carry across steps that keep them, and the LML telescopes:
+        `logsumexp(lw) - log K` is banked at each resample and the rest is
+        settled at the end.
+        """
+        n = self.n_particles
+        log_n = math.log(n)
+
+        init_trs, lw = self.init_model.importance(
+            rng, ChoiceMap.kw(**{self.obs_addr: observations[0]}), (), n
+        )
+        z = init_trs.get_retval()
+        lml = torch.zeros((), device=lw.device)
+        for t in range(1, observations.shape[0]):
+            trs, ws = self.step_model.importance(
+                rng, ChoiceMap.kw(**{self.obs_addr: observations[t]}), (z, t), n
+            )
+            z = trs.get_retval()
+            lw = lw + ws
+            # The ESS gate is a host branch: reading the comparison waits
+            # for the device, one synchronisation per step.
+            if ess(lw) < self.ess_threshold * n:
+                lml = lml + logsumexp(lw) - log_n
+                z = take_rows(z, systematic_resample(rng, lw, n), n_rows=n)
+                lw = torch.zeros_like(lw)
+        lml = lml + logsumexp(lw) - log_n
+        # One final resample so the returned states are equally weighted.
+        z_out = take_rows(z, systematic_resample(rng, lw, n), n_rows=n)
+        return lml, z_out

@@ -1,0 +1,6 @@
+"""Hand-written CUDA kernels for the inference hot loops, each with its
+plain PyTorch twin. Kernels are built from `csrc/` at first use."""
+
+from genjax_tpu_torch.ops.logsumexp import fused_logsumexp, logsumexp, logsumexp_plain
+
+__all__ = ["fused_logsumexp", "logsumexp", "logsumexp_plain"]

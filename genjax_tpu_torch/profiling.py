@@ -1,0 +1,152 @@
+"""Where the time goes on the particle path, on one CUDA card.
+
+Traces each configuration that `chip_smoke.py` runs with `torch.profiler`
+(CUPTI device intervals) and prints, for each:
+
+- wall: the median host-clock time of unprofiled runs, each between two
+  device synchronisations;
+- device busy: the union of the traced device intervals (kernels, copies,
+  fills) of one profiled run;
+- idle share: `1 - busy / wall`;
+- device items and host kernel-launch calls per step (per trial for SIR,
+  per filter step for the filters), and the largest device items.
+
+Run from the repository root, with one CUDA card visible:
+
+    python3 -m genjax_tpu_torch.profiling
+
+The last line of standard output is one JSON object with every number.
+"""
+
+import json
+import math
+import statistics
+import subprocess
+import time
+from collections import defaultdict
+
+import torch
+
+WALL_RUNS = 5
+SIR_PARTICLES = 1_000_000
+BIG_FILTER_PARTICLES = 1_000_000
+BIG_FILTER_STEPS = 50
+
+
+def busy_us(intervals) -> float:
+    """The length of the union of `(start, end)` intervals.
+
+    >>> busy_us([(0.0, 2.0), (1.0, 3.0), (5.0, 6.0)])
+    4.0
+    """
+    total, reached = 0.0, -math.inf
+    for start, end in sorted(intervals):
+        if end > reached:
+            total += end - max(start, reached)
+            reached = end
+    return total
+
+
+def summarize(device_items, launch_calls: int, wall_ms: float, steps: int, top: int = 3) -> dict:
+    """The numbers of one trace. `device_items` holds a `(name, start_us,
+    end_us)` triple per device interval; `launch_calls` counts the host's
+    kernel-launch API calls."""
+    by_name = defaultdict(lambda: [0, 0.0])
+    for name, start, end in device_items:
+        by_name[name][0] += 1
+        by_name[name][1] += end - start
+    busy_ms = busy_us((start, end) for _, start, end in device_items) / 1e3
+    largest = sorted(by_name.items(), key=lambda item: -item[1][1])[:top]
+    return {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / wall_ms,
+        "device_items_per_step": len(device_items) / steps,
+        "launch_calls_per_step": launch_calls / steps,
+        "largest": [
+            {"name": name, "count": count, "ms": us / 1e3, "share_of_busy": us / 1e3 / busy_ms}
+            for name, (count, us) in largest
+        ],
+    }
+
+
+def trace(fn, steps: int) -> dict:
+    """Wall time of unprofiled runs of `fn`, then one profiled run."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(WALL_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    device = [(e.name, e.time_range.start, e.time_range.end) for e in events if e.device_type == cuda]
+    if not device:
+        raise RuntimeError("the profiler saw no device interval; time with CUDA events instead")
+    launches = sum(1 for e in events if e.device_type == cpu and "LaunchKernel" in e.name)
+    return summarize(device, launches, statistics.median(walls), steps)
+
+
+def configurations():
+    """(label, steps, fn) of each configuration, on the card."""
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.entry import N_PARTICLES, N_STEPS, entry
+    from genjax_tpu_torch.models.beta_bernoulli import beta_bernoulli
+    from genjax_tpu_torch.models.ssm import run_bootstrap_filter, simulate_ssm_data
+
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    target = gx.Target(beta_bernoulli, (2.0, 2.0), gx.ChoiceMap.d({"v": True}))
+    alg = gx.ImportanceK(target, k_particles=SIR_PARTICLES)
+
+    def sir_trial():
+        col = alg.run_smc(rng)
+        return col.get_log_marginal_likelihood_estimate(), col.sample_particle(rng)
+
+    small_filter, _ = entry("cuda")
+    _, ys = simulate_ssm_data(torch.Generator().manual_seed(1), BIG_FILTER_STEPS)
+    ys = ys.to("cuda")
+    return [
+        (f"SIR beta-bernoulli K={SIR_PARTICLES}, one trial (importance, LML, one draw)", 1, sir_trial),
+        (f"filter K={N_PARTICLES} T={N_STEPS}", N_STEPS, lambda: small_filter(rng)),
+        (
+            f"filter K={BIG_FILTER_PARTICLES} T={BIG_FILTER_STEPS}",
+            BIG_FILTER_STEPS,
+            lambda: run_bootstrap_filter(rng, ys, n_particles=BIG_FILTER_PARTICLES),
+        ),
+    ]
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling: no CUDA device (torch.cuda.is_available() is False)")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(card)
+    results = {}
+    for label, steps, fn in configurations():
+        r = trace(fn, steps)
+        results[label] = r
+        largest = "; ".join(
+            f"{item['name'][:80]} x{item['count']} {item['ms']:.3f} ms ({100 * item['share_of_busy']:.1f}%)"
+            for item in r["largest"]
+        )
+        print(
+            f"[{card}] {label}: wall {r['wall_ms']:.3f} ms (median of {WALL_RUNS}), device busy "
+            f"{r['device_busy_ms']:.3f} ms, idle {100 * r['idle_share']:.1f}%, "
+            f"{r['device_items_per_step']:.1f} device items and {r['launch_calls_per_step']:.1f} "
+            f"launch calls per step; largest: {largest}"
+        )
+    print(json.dumps({"card": card, "configurations": results}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,112 @@
+"""The port's logsumexp (`genjax_tpu_torch.ops`) against the JAX package's.
+
+On the CPU the public `logsumexp` runs its plain PyTorch version; the
+CUDA kernel's own checks are in `tests/test_torch_cuda.py` (card only).
+Inputs are made with numpy and handed to both packages.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.scipy.special import logsumexp as jax_logsumexp
+
+from genjax_tpu.ops import fused_logsumexp as pallas_logsumexp
+from genjax_tpu_torch.ops import _build, fused_logsumexp, logsumexp, logsumexp_plain
+
+torch.set_num_threads(1)
+
+INF = np.inf
+
+
+@pytest.mark.parametrize("n", [1, 100, 65_536, 100_001])
+def test_plain_matches_pallas_kernel_on_finite_inputs(n):
+    # Tolerance 1e-5 * max(1, |ref|): both sum n float32 terms, in
+    # different orders (tiles of 128 lanes against torch's reduction).
+    x = (3.0 * np.random.default_rng(n).standard_normal(n)).astype(np.float32)
+    ref = float(pallas_logsumexp(jnp.asarray(x), interpret=True))
+    got = float(logsumexp(torch.from_numpy(x)))
+    assert abs(got - ref) <= 1e-5 * max(1.0, abs(ref))
+
+
+SPECIAL_CASES = {
+    # 70,000 -inf then 1,000 zeros: the Pallas kernel returns NaN here
+    # (its first tile is all -inf); XLA and the port give log(1000).
+    "leading_neg_inf_block": np.concatenate(
+        [np.full(70_000, -INF), np.zeros(1_000)]
+    ).astype(np.float32),
+    "all_neg_inf": np.full(1_000, -INF, dtype=np.float32),
+    "pos_inf": np.array([0.0, INF, -INF, 3.0], dtype=np.float32),
+    "two_pos_inf": np.array([INF, INF], dtype=np.float32),
+    "nan": np.array([0.0, np.nan, 1.0], dtype=np.float32),
+    "nan_and_inf": np.array([INF, np.nan], dtype=np.float32),
+    "empty": np.zeros(0, dtype=np.float32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPECIAL_CASES))
+def test_special_cases_match_xla_logsumexp_exactly(case):
+    x = SPECIAL_CASES[case]
+    ref = np.asarray(jax_logsumexp(jnp.asarray(x)))
+    got = logsumexp(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32 and got.shape == ()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_pallas_kernel_still_has_the_leading_neg_inf_fault():
+    # Records the open fault of the JAX kernel that the port does not
+    # inherit: NaN where XLA (and the port) give log(1000).
+    x = SPECIAL_CASES["leading_neg_inf_block"]
+    assert np.isnan(float(pallas_logsumexp(jnp.asarray(x), interpret=True)))
+    assert float(logsumexp(torch.from_numpy(x))) == pytest.approx(np.log(1000.0), abs=1e-6)
+
+
+def test_plain_version_casts_to_float32_and_takes_only_vectors():
+    x = np.random.default_rng(0).standard_normal(257)
+    got = logsumexp_plain(torch.from_numpy(x))  # float64 in, float32 out
+    assert got.dtype == torch.float32
+    assert float(got) == pytest.approx(float(jax_logsumexp(jnp.asarray(x, jnp.float32))), abs=1e-5)
+    with pytest.raises(ValueError, match="1-D"):
+        logsumexp(torch.zeros(2, 3))
+
+
+def test_kernel_launcher_never_returns_the_plain_result_off_the_card():
+    # The branch a CUDA tensor takes refuses a CPU tensor outright ...
+    before = fused_logsumexp.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        fused_logsumexp(torch.zeros(8))
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_logsumexp(torch.zeros(8, 2)[:, 0])
+    assert fused_logsumexp.launches == before
+
+
+def test_kernel_build_without_nvcc_raises_a_clear_error(monkeypatch):
+    # ... and, without the CUDA toolkit, the build itself raises.
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build.os, "access", lambda path, mode: False)
+    _build.load_library.cache_clear()
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        _build.load_library("logsumexp")
+
+
+def test_importing_the_kernel_module_needs_no_nvcc_or_gpu():
+    code = (
+        "import torch\n"
+        "import genjax_tpu_torch.ops as ops\n"
+        "print(float(ops.logsumexp(torch.zeros(4))))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        capture_output=True,
+        text=True,
+        env={"PATH": "", "CUDA_VISIBLE_DEVICES": ""},
+        cwd=Path(__file__).resolve().parent.parent,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert float(out.stdout) == pytest.approx(np.log(4.0))
