@@ -1,10 +1,14 @@
 """Smoke run of genjax_tpu_torch on one CUDA card.
 
 Builds the package's CUDA kernels from `genjax_tpu_torch/csrc/`, holds
-each against its plain PyTorch version, then drives the particle path
-through the package's own entry points: beta-bernoulli SIR at K=1,000,000
-and the SSM bootstrap filter (the `entry()` sweep at K=4096, T=20, and
-K=1,000,000, T=50). Every phase raises on failure; nothing is caught.
+each entry point (`logsumexp`, `logsumexp_ess`) against its plain PyTorch
+version at the main path's sizes, aligned and not, on the special values,
+back to back and on two streams, and times both beside their bound and
+`torch.logsumexp`. Then it drives the particle path through the package's
+own entry points: beta-bernoulli SIR at K=1,000,000 and the SSM bootstrap
+filter (the `entry()` sweep at K=4096, T=20, and K=1,000,000, T=50),
+checking that each filter step reduces its weights with one launch. Every
+phase raises on failure; nothing is caught.
 
 Run from the repository root, with one CUDA card visible:
 
@@ -33,7 +37,18 @@ BIG_FILTER_STEPS = 50
 BIG_FILTER_RUNS = 3
 # 4096 is entry()'s K, 10,000 the first planned filter cell's, 1M the SIR's.
 KERNEL_SIZES = (1, 127, 4_096, 10_000, 65_541, 262_144, 1_000_000, 16_777_216)
+TIMED_SIZES = (4_096, 10_000, 1_000_000, 16_777_216)
+MAIN_PATH_N = 1_000_000  # the size of the kernels' line: SIR and the large filter
 TIMED_CALLS = 50
+BACK_TO_BACK_CALLS = 1000
+# The least time of a call: its bytes over the H100's HBM rate, or its
+# float32 operations over the rate outside the tensor cores, whichever is
+# larger (published peaks of the SXM part at 700 W). Operations per value:
+# max, subtract, exp and add; the ESS adds a multiply-add for exp(x - m)^2.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+OPS_PER_VALUE = {"logsumexp": 4, "logsumexp_ess": 6}
+OUTPUTS = {"logsumexp": 1, "logsumexp_ess": 2}
 
 
 def check(ok: bool, what: str) -> None:
@@ -57,6 +72,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def bound(name: str, n: int) -> tuple[float, str]:
+    """(ms, what bounds it): the least time the card could take for one
+    call over n float32 values, each read once, the outputs written once."""
+    bytes_ms = 1e3 * 4 * (n + OUTPUTS[name]) / HBM_BYTES_PER_S
+    ops_ms = 1e3 * OPS_PER_VALUE[name] * n / F32_OPS_PER_S
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
 def per_call_ms(fn, x: torch.Tensor, calls: int) -> list[float]:
     """Event time of each call on its own: the device time plus whatever
     the host's enqueueing leaves the device idle, as the caller sees it."""
@@ -71,39 +94,49 @@ def per_call_ms(fn, x: torch.Tensor, calls: int) -> list[float]:
     return times
 
 
-def device_ms(fn, x: torch.Tensor, calls: int) -> float:
-    """Device time per call: a sleep kernel holds the stream while the
-    host enqueues all `calls`, so the events time the device alone."""
-    torch.cuda.synchronize()
-    torch.cuda._sleep(50_000_000)  # about 25 ms at 1.98 GHz
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        fn(x)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / calls
-
-
-def same_special_value(a: torch.Tensor, b: torch.Tensor) -> bool:
-    a, b = float(a), float(b)
-    return (math.isnan(a) and math.isnan(b)) or a == b
+def close(got: torch.Tensor, ref: torch.Tensor) -> tuple[bool, float]:
+    """(agrees, |error|): special values (NaN, +-inf) exactly, finite ones
+    within 1e-5 * max(1, |ref|), as the kernel sums in another order."""
+    got, ref = float(got), float(ref)
+    if math.isnan(got) or math.isnan(ref) or math.isinf(got) or math.isinf(ref):
+        return (math.isnan(got) and math.isnan(ref)) or got == ref, 0.0
+    err = abs(got - ref)
+    return err <= 1e-5 * max(1.0, abs(ref)), err
 
 
 def phase_kernel(ops, card: str) -> dict:
+    """Both entry points against their plain twins, back to back and on two
+    streams; then their times. Returns one record per kernel for the
+    kernels' line."""
+    from genjax_tpu_torch.profiling import device_and_host
+
     dev = torch.device("cuda")
     rng = torch.Generator(device=dev).manual_seed(0)
-    max_err = 0.0
+    kernels = {"logsumexp": (ops.fused_logsumexp, ops.logsumexp_plain),
+               "logsumexp_ess": (ops.fused_logsumexp_ess, ops.logsumexp_ess_plain)}
+    max_err = dict.fromkeys(kernels, 0.0)
+
+    def compare(name: str, got, v: torch.Tensor, label: str) -> float:
+        """Check a kernel's result on v against its plain twin's; the
+        largest |error|."""
+        ref = kernels[name][1](v)
+        pairs = zip(got, ref) if name == "logsumexp_ess" else [(got, ref)]
+        worst = 0.0
+        for what, (g, r) in zip(("lse", "ess"), pairs):
+            ok, err = close(g, r)
+            check(ok, f"{name} {label}: {what} {float(g)} vs plain {float(r)}")
+            worst = max(worst, err)
+        max_err[name] = max(max_err[name], worst)
+        return worst
+
+    def hold(name: str, v: torch.Tensor, label: str) -> float:
+        return compare(name, kernels[name][0](v), v, label)
+
     for n in KERNEL_SIZES:
-        x = 3.0 * torch.randn(n, generator=rng, device=dev)
-        cases = [(f"N={n}", x)] + ([(f"N={n - 1} (unaligned start)", x[1:])] if n > 1 else [])
-        for label, v in cases:
-            got, ref = ops.fused_logsumexp(v), ops.logsumexp_plain(v)
-            err = abs(float(got) - float(ref))
-            tol = 1e-5 * max(1.0, abs(float(ref)))
-            check(math.isfinite(float(got)) and err <= tol, f"logsumexp {label}: {float(got)} vs {float(ref)}")
-            max_err = max(max_err, err)
-            print(f"logsumexp kernel == plain at {label}: |err| {err:.3e} (tolerance {tol:.3e})")
+        x = 3.0 * torch.randn(n + 3, generator=rng, device=dev)
+        errs = {name: max(hold(name, x[s : s + n], f"N={n} at offset {s}") for s in (0, 1, 3)) for name in kernels}
+        print(f"kernels == plain at N={n}, offsets 0, 1 and 3 (aligned, unaligned): max |err| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + " (tolerance 1e-5 * max(1, |ref|))")
     specials = {
         "70,000 -inf then 1,000 zeros": [-math.inf] * 70_000 + [0.0] * 1_000,
         "all -inf": [-math.inf] * 1_000,
@@ -113,35 +146,79 @@ def phase_kernel(ops, card: str) -> dict:
     }
     for label, values in specials.items():
         x = torch.tensor(values, dtype=torch.float32, device=dev)
-        got, ref = ops.fused_logsumexp(x), ops.logsumexp_plain(x)
-        check(same_special_value(got, ref), f"logsumexp special case {label}: {float(got)} vs {float(ref)}")
-        print(f"logsumexp kernel == plain on {label}: {float(got)}")
+        for name in kernels:
+            hold(name, x, label)
+        lse, ess = ops.fused_logsumexp_ess(x)
+        print(f"kernels == plain on {label}: logsumexp {float(ops.fused_logsumexp(x))}, "
+              f"logsumexp_ess ({float(lse)}, {float(ess)})")
 
-    timings = {}
-    plain = lambda v: torch.logsumexp(v, 0)  # noqa: E731
-    for n in (1_000_000, 16_777_216):
+    # Back to back with no sync: each launch must find the ticket counter
+    # reset by the one before it.
+    base = 3.0 * torch.randn(1_100_000, generator=rng, device=dev)
+    sizes = KERNEL_SIZES[:-1]
+    queued = []
+    for i in range(BACK_TO_BACK_CALLS):
+        n, start = sizes[i % len(sizes)], (7 * i) % 97
+        name = ("logsumexp", "logsumexp_ess")[i % 2]
+        v = base[start : start + n]
+        queued.append((name, v, kernels[name][0](v)))
+    torch.cuda.synchronize()
+    for i, (name, v, got) in enumerate(queued):
+        compare(name, got, v, f"back-to-back call {i} (N={v.numel()})")
+    print(f"{BACK_TO_BACK_CALLS} back-to-back calls (sizes 1 to 1M, offsets 0-96, both entry points, "
+          f"no sync): all equal their plain twins")
+
+    # Two streams at once, each with its own workspace.
+    xs = [3.0 * torch.randn(1_000_000 + i, generator=rng, device=dev) for i in range(4)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    queued = []
+    for i in range(200):
+        with torch.cuda.stream(streams[i % 2]):
+            name = ("logsumexp", "logsumexp_ess")[i % 2]
+            queued.append((name, xs[i % 4], kernels[name][0](xs[i % 4])))
+    torch.cuda.synchronize()
+    for i, (name, v, got) in enumerate(queued):
+        compare(name, got, v, f"two-stream call {i}")
+    print("200 calls on two streams at once (1M values each): all equal their plain twins")
+
+    library = lambda v: torch.logsumexp(v, 0)  # noqa: E731
+    timed = {"logsumexp": ops.fused_logsumexp, "logsumexp_ess": ops.fused_logsumexp_ess,
+             "logsumexp plain": ops.logsumexp_plain, "logsumexp_ess plain": ops.logsumexp_ess_plain,
+             "torch.logsumexp": library}
+    records = {}
+    for n in TIMED_SIZES:
         x = 3.0 * torch.randn(n, generator=rng, device=dev)
-        per_call = {plain: [], ops.fused_logsumexp: []}
-        device = {plain: [], ops.fused_logsumexp: []}
-        for fn in (plain, ops.fused_logsumexp):
-            per_call_ms(fn, x, 5)  # warm up
-        # Alternate plain, kernel, kernel, plain so drift hits both alike.
-        for fn in (plain, ops.fused_logsumexp, ops.fused_logsumexp, plain):
-            per_call[fn] += per_call_ms(fn, x, TIMED_CALLS // 2)
-            device[fn].append(device_ms(fn, x, TIMED_CALLS // 2))
-        kernel_dev, plain_dev = statistics.fmean(device[ops.fused_logsumexp]), statistics.fmean(device[plain])
-        timings[n] = (kernel_dev, plain_dev)
-        print(
-            f"[{card}] logsumexp N={n}, device time per call ({TIMED_CALLS} calls behind a sleep kernel, "
-            f"CUDA events): kernel {kernel_dev:.4f} ms ({4 * n / (kernel_dev * 1e-3) / 1e9:.1f} GB/s), "
-            f"torch.logsumexp {plain_dev:.4f} ms"
-        )
-        print(
-            f"[{card}] logsumexp N={n}, event time of single calls (median of {TIMED_CALLS}, host "
-            f"enqueue included): kernel {statistics.median(per_call[ops.fused_logsumexp]):.4f} ms, "
-            f"torch.logsumexp {statistics.median(per_call[plain]):.4f} ms"
-        )
-    return {"max_abs_err": max_err, "ms": timings[1_000_000][0], "plain_ms": timings[1_000_000][1]}
+        device, host = {k: [] for k in timed}, {k: [] for k in timed}
+        for fn in timed.values():
+            device_and_host(fn, x, 5)  # warm up
+        # In turns, forwards then backwards, so drift hits every version alike.
+        for label in [*timed, *reversed(timed)]:
+            d, h = device_and_host(timed[label], x, TIMED_CALLS // 2)
+            device[label].append(d)
+            host[label].append(h)
+        dev_ms = {k: statistics.fmean(v) for k, v in device.items()}
+        host_us = {k: statistics.fmean(v) for k, v in host.items()}
+        for name in kernels:
+            b_ms, b_by = bound(name, n)
+            records.setdefault(name, {})[n] = {
+                "ms": dev_ms[name], "plain_ms": dev_ms[f"{name} plain"], "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": dev_ms["torch.logsumexp"] if name == "logsumexp" else None,
+            }
+            print(
+                f"[{card}] {name} N={n}: device {dev_ms[name]:.4f} ms per call ({TIMED_CALLS} calls behind a "
+                f"sleep kernel, CUDA events), bound {b_ms:.4g} ms ({b_by}), {100 * b_ms / dev_ms[name]:.1f}% of "
+                f"bound; plain twin {dev_ms[name + ' plain']:.4f} ms; torch.logsumexp "
+                f"{dev_ms['torch.logsumexp']:.4f} ms; host enqueue {host_us[name]:.2f} us per call "
+                f"(plain twin {host_us[name + ' plain']:.2f}, torch.logsumexp {host_us['torch.logsumexp']:.2f})"
+            )
+        if n == MAIN_PATH_N:
+            single = {k: statistics.median(per_call_ms(timed[k], x, TIMED_CALLS)) for k in
+                      ("logsumexp", "logsumexp_ess", "torch.logsumexp")}
+            print(f"[{card}] N={n}, event time of single calls (median of {TIMED_CALLS}, host enqueue "
+                  f"included): " + ", ".join(f"{k} {v:.4f} ms" for k, v in single.items()))
+    return {name: {"max_abs_err": max_err[name], **records[name][MAIN_PATH_N]} for name in kernels}
 
 
 def phase_sir(gx, ops, card: str) -> None:
@@ -169,12 +246,14 @@ def phase_sir(gx, ops, card: str) -> None:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     check(
-        all(lml_n > 0 and draw_n > 0 for *_, (lml_n, draw_n) in trials),
-        "the SIR LML or categorical draw launched no logsumexp kernel",
+        all(counts == (1, 1) for *_, counts in trials),
+        f"the SIR LML and categorical draw should launch the logsumexp kernel once each: {[t[-1] for t in trials]}",
     )
+    print(f"K1 launches per SIR trial: 1 for the LML, 1 for the draw (each of {SIR_TRIALS} trials)")
 
     # Checks outside the timed trials. The weighted mean goes through
-    # torch.softmax, not the kernel, so it adds no launch to the count.
+    # torch.softmax, not the kernel, so it adds no launch to the count;
+    # each ESS is one launch of logsumexp_ess.
     rows = []
     for col, lml, draw, _ in trials:
         p = col.get_particles().get_choices()["p"].double()
@@ -194,9 +273,20 @@ def phase_sir(gx, ops, card: str) -> None:
     )
 
 
-def phase_filter(card: str) -> None:
+def phase_filter(ops, card: str) -> None:
     from genjax_tpu_torch.entry import N_PARTICLES, N_STEPS, entry
     from genjax_tpu_torch.models.ssm import run_bootstrap_filter, simulate_ssm_data
+
+    def k1_launches() -> tuple[int, int]:
+        return ops.fused_logsumexp_ess.launches, ops.fused_logsumexp.launches
+
+    def check_one_reduction_per_step(before: tuple[int, int], steps: int, what: str) -> None:
+        """Each step of a filter of `steps` steps launches logsumexp_ess
+        once (the step's T - 1 weight updates), and nothing else launches
+        K1: neither the resample branch nor the final resample reduces."""
+        ess_n, lse_n = (a - b for a, b in zip(k1_launches(), before))
+        check((ess_n, lse_n) == (steps - 1, 0),
+              f"{what}: {ess_n} logsumexp_ess and {lse_n} logsumexp launches, not {steps - 1} and 0")
 
     fn_gpu, _ = entry("cuda")
     fn_cpu, _ = entry("cpu")
@@ -204,10 +294,12 @@ def phase_filter(card: str) -> None:
     gpu_lml, gpu_ms = [], []
     for seed in range(FILTER_SEEDS):
         torch.cuda.synchronize()
+        before = k1_launches()
         t0 = time.perf_counter()
         lml, z_mean = fn_gpu(torch.Generator(device="cuda").manual_seed(seed))
         torch.cuda.synchronize()
         gpu_ms.append(1e3 * (time.perf_counter() - t0))
+        check_one_reduction_per_step(before, N_STEPS, f"filter K={N_PARTICLES} T={N_STEPS}")
         check(math.isfinite(float(z_mean)), "entry(): non-finite final mean")
         gpu_lml.append(float(lml))
     # The CPU runs come after the timed CUDA runs, so that CPU worker
@@ -247,12 +339,14 @@ def phase_filter(card: str) -> None:
     torch.cuda.reset_peak_memory_stats()
     for seed in range(BIG_FILTER_RUNS):
         torch.cuda.synchronize()
+        before = k1_launches()
         t0 = time.perf_counter()
         lml, z = run_bootstrap_filter(
             torch.Generator(device="cuda").manual_seed(seed), ys, n_particles=BIG_FILTER_PARTICLES
         )
         torch.cuda.synchronize()
         big_ms.append(1e3 * (time.perf_counter() - t0))
+        check_one_reduction_per_step(before, BIG_FILTER_STEPS, f"filter K={BIG_FILTER_PARTICLES} T={BIG_FILTER_STEPS}")
         big_lml.append(float(lml))
         check(math.isfinite(big_lml[-1]) and z.shape == (BIG_FILTER_PARTICLES,), "K=1M filter LML not finite")
     ms = statistics.median(big_ms)
@@ -263,6 +357,8 @@ def phase_filter(card: str) -> None:
         f"peak device memory {(torch.cuda.max_memory_allocated() - base_bytes) / 2**20:.1f} MiB "
         f"(over {base_bytes / 2**20:.1f} MiB left allocated by earlier phases)"
     )
+    print(f"K1 launches per filter step: 1 (logsumexp_ess); per filter: {N_STEPS - 1} at T={N_STEPS}, "
+          f"{BIG_FILTER_STEPS - 1} at T={BIG_FILTER_STEPS}; none in the resample branch or the final resample")
 
 
 def main() -> None:
@@ -282,27 +378,27 @@ def main() -> None:
     _build.load_library("logsumexp")
     print(f"built {lib.name} from genjax_tpu_torch/csrc/logsumexp.cu in {time.perf_counter() - t0:.2f} s")
 
-    kernel = phase_kernel(ops, card)
+    kernels = phase_kernel(ops, card)
 
-    ops.fused_logsumexp.launches = 0
+    # The main path, with every launch count set to 0 just before it.
+    ops.fused_logsumexp.launches = ops.fused_logsumexp_ess.launches = 0
     phase_sir(gx, ops, card)
-    sir_launches = ops.fused_logsumexp.launches
-    check(sir_launches > 0, "the SIR phase launched no logsumexp kernel")
-    phase_filter(card)
-    launches = ops.fused_logsumexp.launches
-    check(launches > sir_launches, "the filter phase launched no logsumexp kernel")
-    print(f"logsumexp kernel launches on the main path: SIR {sir_launches}, filter {launches - sir_launches}")
+    sir = {"logsumexp": ops.fused_logsumexp.launches, "logsumexp_ess": ops.fused_logsumexp_ess.launches}
+    phase_filter(ops, card)
+    launches = {"logsumexp": ops.fused_logsumexp.launches, "logsumexp_ess": ops.fused_logsumexp_ess.launches}
+    for name, count in launches.items():
+        check(count > 0, f"the main path launched no {name} kernel")
+    print("kernel launches on the main path: " + ", ".join(
+        f"{name} {count} (SIR {sir[name]}, filters {count - sir[name]})" for name, count in launches.items()))
 
     print(json.dumps({"kernels": [{
-        "name": "logsumexp",
+        "name": name,
         "route": "cuda",
         "source": "genjax_tpu_torch/csrc/logsumexp.cu",
         "replaces": "genjax_tpu/ops/logsumexp.py:21",
-        "launches": launches,
-        "max_abs_err": kernel["max_abs_err"],
-        "ms": kernel["ms"],
-        "plain_ms": kernel["plain_ms"],
-    }]}))
+        "launches": launches[name],
+        **record,
+    } for name, record in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -4,7 +4,8 @@ The JAX side turns its values into numpy (`np.asarray`); these functions
 turn those into the port's objects: tensors, choice maps, static traces
 and particle collections. Traces are rebuilt by the port's own fully
 constrained `generate`, so their scores are the port's densities of the
-carried values. This module imports no JAX.
+carried values. Everything lands on the CUDA card unless the caller passes
+`device="cpu"`. This module imports no JAX.
 """
 
 from typing import Any
@@ -18,12 +19,12 @@ from genjax_tpu_torch.inference.smc import ParticleCollection
 from genjax_tpu_torch.lang.static import StaticTrace
 
 
-def tensor(x: Any, device: torch.device | str = "cpu") -> torch.Tensor:
+def tensor(x: Any, device: torch.device | str = "cuda") -> torch.Tensor:
     """A numpy array (or scalar) as a tensor on `device`, dtype kept."""
     return torch.from_numpy(np.array(x, copy=True)).to(device)
 
 
-def choice_map(entries: dict, device: torch.device | str = "cpu") -> ChoiceMap:
+def choice_map(entries: dict, device: torch.device | str = "cuda") -> ChoiceMap:
     """`{address: array}` (an address is a string or a tuple of strings) as
     a choice map of tensors."""
     return ChoiceMap.d({addr: tensor(v, device) for addr, v in entries.items()})
@@ -34,7 +35,7 @@ def static_trace(
     args: tuple,
     choices: dict,
     n: int | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> StaticTrace:
     """The port's trace of `gen_fn(*args)` holding exactly `choices`
     (`{address: array}`, with a leading particle axis of length `n` where
@@ -51,7 +52,7 @@ def particle_collection(
     args: tuple,
     choices: dict,
     log_weights: np.ndarray,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> ParticleCollection:
     """A `ParticleCollection` of the particles `choices` (K rows per
     per-particle address, shared values unbatched) with `log_weights`."""

@@ -14,9 +14,13 @@ N_PARTICLES = 4096
 N_STEPS = 20
 
 
-def entry(device: torch.device | str = "cpu"):
+def entry(device: torch.device | str = "cuda"):
     """Returns (fn, example_args): `fn(rng)` filters the observations and
-    returns (LML estimate, mean of the final states)."""
+    returns (LML estimate, mean of the final states). Runs on the CUDA card
+    unless `device` says otherwise; without a card it raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("entry(): no CUDA device; pass device='cpu' to run on the CPU.")
     _, ys = simulate_ssm_data(torch.Generator().manual_seed(1), N_STEPS)
     ys = ys.to(device)
 

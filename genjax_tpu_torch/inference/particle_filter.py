@@ -16,8 +16,8 @@ from genjax_tpu_torch.core.choice_map import ChoiceMap
 from genjax_tpu_torch.core.gather import take_rows
 from genjax_tpu_torch.core.gfi import GenerativeFunction
 from genjax_tpu_torch.core.pytree import Pytree
-from genjax_tpu_torch.inference.smc import ess, systematic_resample
-from genjax_tpu_torch.ops import logsumexp
+from genjax_tpu_torch.inference.smc import systematic_resample
+from genjax_tpu_torch.ops import logsumexp, logsumexp_ess
 
 
 @Pytree.dataclass
@@ -44,6 +44,10 @@ class BootstrapFilter(Pytree):
         Weights carry across steps that keep them, and the LML telescopes:
         `logsumexp(lw) - log K` is banked at each resample and the rest is
         settled at the end.
+
+        Each step reduces its weights once (`logsumexp_ess`, one kernel
+        launch on the device); the gate, the LML update and the resampler
+        share that `logsumexp(lw)`, and the final resample reuses the last.
         """
         n = self.n_particles
         log_n = math.log(n)
@@ -53,19 +57,24 @@ class BootstrapFilter(Pytree):
         )
         z = init_trs.get_retval()
         lml = torch.zeros((), device=lw.device)
+        lse = None  # logsumexp(lw), once a step has reduced lw
         for t in range(1, observations.shape[0]):
             trs, ws = self.step_model.importance(
                 rng, ChoiceMap.kw(**{self.obs_addr: observations[t]}), (z, t), n
             )
             z = trs.get_retval()
             lw = lw + ws
+            lse, ess = logsumexp_ess(lw)
             # The ESS gate is a host branch: reading the comparison waits
             # for the device, one synchronisation per step.
-            if ess(lw) < self.ess_threshold * n:
-                lml = lml + logsumexp(lw) - log_n
-                z = take_rows(z, systematic_resample(rng, lw, n), n_rows=n)
+            if ess < self.ess_threshold * n:
+                lml = lml + lse - log_n
+                z = take_rows(z, systematic_resample(rng, lw, n, lse), n_rows=n)
                 lw = torch.zeros_like(lw)
-        lml = lml + logsumexp(lw) - log_n
+                lse = log_n  # logsumexp of n zeros
+        if lse is None:
+            lse = logsumexp(lw)
+        lml = lml + lse - log_n
         # One final resample so the returned states are equally weighted.
-        z_out = take_rows(z, systematic_resample(rng, lw, n), n_rows=n)
+        z_out = take_rows(z, systematic_resample(rng, lw, n, lse), n_rows=n)
         return lml, z_out

@@ -9,7 +9,9 @@ Counterpart of part of `genjax_tpu/inference/smc.py`: `ess`,
 A `ParticleCollection` holds traces with a leading particle axis of
 length K on every per-particle leaf; model arguments and observations are
 stored once and shared. Every reduction over the K log weights goes
-through `ops.logsumexp`, which runs the CUDA kernel on the device.
+through `ops.logsumexp` or `ops.logsumexp_ess`, which run the CUDA kernel
+on the device, and each is taken once: a caller that already holds
+`logsumexp(log_weights)` hands it to the resampler.
 """
 
 import math
@@ -24,28 +26,38 @@ from genjax_tpu_torch.core.gfi import Trace
 from genjax_tpu_torch.core.pytree import Pytree, tree_map
 from genjax_tpu_torch.core.typing import FloatArray
 from genjax_tpu_torch.inference.sp import Algorithm, Target
-from genjax_tpu_torch.ops import logsumexp
+from genjax_tpu_torch.ops import logsumexp, logsumexp_ess
 
 R = TypeVar("R")
 
 
 def ess(log_weights: torch.Tensor) -> torch.Tensor:
-    """Effective sample size `(sum w)^2 / sum w^2`, in log space.
+    """Effective sample size `(sum w)^2 / sum w^2`, from the same read as
+    `logsumexp(log_weights)` (`ops.logsumexp_ess`).
 
     >>> import torch
     >>> from genjax_tpu_torch.inference.smc import ess
     >>> round(float(ess(torch.zeros(8))), 1), round(float(ess(torch.tensor([0.0, -1e9, -1e9]))), 1)
     (8.0, 1.0)
     """
-    lw = log_weights - logsumexp(log_weights)
-    return torch.exp(-logsumexp(2.0 * lw))
+    return logsumexp_ess(log_weights)[1]
 
 
-def systematic_cum_counts(u0: FloatArray, log_weights: torch.Tensor, n: int) -> torch.Tensor:
+def systematic_cum_counts(
+    u0: FloatArray, log_weights: torch.Tensor, n: int, lse: FloatArray | None = None
+) -> torch.Tensor:
     """The cumulative block counts `N_i` of systematic resampling: output
     slots `[N_{i-1}, N_i)` copy particle i. `u0` is the resampler's one
-    uniform draw in [0, 1)."""
-    cdf = torch.cumsum(torch.softmax(log_weights, 0), 0)
+    uniform draw in [0, 1); `lse` is `logsumexp(log_weights)` where the
+    caller holds it already. The weights are `exp(log_weights - lse)`,
+    the softmax that JAX's `jax.nn.softmax` computes."""
+    if lse is None:
+        lse = logsumexp(log_weights)
+    cdf = torch.cumsum(torch.exp(log_weights - lse), 0)
+    # The weights sum to 1 only up to the rounding of `lse`, an error that
+    # would move every count near a floor tie the same way; dividing by
+    # their own total, as the softmax divides by its sum, cancels it.
+    cdf = cdf / cdf[-1]
     return torch.clamp(torch.floor(n * cdf - u0).to(torch.int64) + 1, 0, n)
 
 
@@ -57,10 +69,13 @@ def cum_counts_to_ancestors(cum: torch.Tensor, n: int) -> torch.Tensor:
     return torch.searchsorted(cum, torch.minimum(slots, cum[-1] - 1), right=True)
 
 
-def systematic_resample(rng: torch.Generator, log_weights: torch.Tensor, n: int) -> torch.Tensor:
-    """Systematic (low-variance) resampling: `n` ancestor indices."""
+def systematic_resample(
+    rng: torch.Generator, log_weights: torch.Tensor, n: int, lse: FloatArray | None = None
+) -> torch.Tensor:
+    """Systematic (low-variance) resampling: `n` ancestor indices. `lse`
+    as in `systematic_cum_counts`."""
     u0 = torch.rand((), generator=rng, device=rng.device)
-    return cum_counts_to_ancestors(systematic_cum_counts(u0, log_weights, n), n)
+    return cum_counts_to_ancestors(systematic_cum_counts(u0, log_weights, n, lse), n)
 
 
 def _select_row(v: Any, idx: torch.Tensor, n: int) -> Any:
@@ -109,8 +124,9 @@ class ParticleCollection(Generic[R], Pytree):
         """Systematic resampling to equal weights, each the mean weight (so
         LML accumulation telescopes)."""
         n = self.log_weights.shape[0]
-        anc = systematic_resample(rng, self.log_weights, n)
-        avg_lw = logsumexp(self.log_weights) - math.log(n)
+        lse = logsumexp(self.log_weights)
+        anc = systematic_resample(rng, self.log_weights, n, lse)
+        avg_lw = lse - math.log(n)
         return ParticleCollection(
             take_rows(self.particles, anc, n_rows=n),
             avg_lw.expand(n).contiguous(),

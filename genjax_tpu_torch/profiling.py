@@ -9,7 +9,10 @@ Traces each configuration that `chip_smoke.py` runs with `torch.profiler`
   fills) of one profiled run;
 - idle share: `1 - busy / wall`;
 - device items and host kernel-launch calls per step (per trial for SIR,
-  per filter step for the filters), and the largest device items.
+  per filter step for the filters), and the largest device items;
+- K1: the device kernels of the logsumexp kernel in the trace beside the
+  launches its wrappers counted in the same run (one kernel per launch),
+  and how many device items come from `torch.softmax`.
 
 Run from the repository root, with one CUDA card visible:
 
@@ -47,10 +50,16 @@ def busy_us(intervals) -> float:
     return total
 
 
-def summarize(device_items, launch_calls: int, wall_ms: float, steps: int, top: int = 3) -> dict:
+K1_KERNEL = "genjax_lse"  # the name of the logsumexp kernel in csrc/logsumexp.cu
+
+
+def summarize(
+    device_items, launch_calls: int, wall_ms: float, steps: int, top: int = 3, k1_launches: int = 0
+) -> dict:
     """The numbers of one trace. `device_items` holds a `(name, start_us,
     end_us)` triple per device interval; `launch_calls` counts the host's
-    kernel-launch API calls."""
+    kernel-launch API calls, `k1_launches` the launches that K1's wrappers
+    counted in the traced run."""
     by_name = defaultdict(lambda: [0, 0.0])
     for name, start, end in device_items:
         by_name[name][0] += 1
@@ -63,11 +72,37 @@ def summarize(device_items, launch_calls: int, wall_ms: float, steps: int, top: 
         "idle_share": 1.0 - busy_ms / wall_ms,
         "device_items_per_step": len(device_items) / steps,
         "launch_calls_per_step": launch_calls / steps,
+        "k1_launches": k1_launches,
+        "k1_device_kernels": sum(K1_KERNEL in name for name, _, _ in device_items),
+        "softmax_items": sum("softmax" in name.lower() for name, _, _ in device_items),
         "largest": [
             {"name": name, "count": count, "ms": us / 1e3, "share_of_busy": us / 1e3 / busy_ms}
             for name, (count, us) in largest
         ],
     }
+
+
+def k1_launches() -> int:
+    from genjax_tpu_torch.ops import fused_logsumexp, fused_logsumexp_ess
+
+    return fused_logsumexp.launches + fused_logsumexp_ess.launches
+
+
+def device_and_host(fn, x: torch.Tensor, calls: int) -> tuple[float, float]:
+    """(device ms, host us) per call of `fn(x)`: a sleep kernel holds the
+    stream while the host enqueues all `calls`, so CUDA events time the
+    device alone and the host clock times the enqueueing alone."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # about 25 ms at 1.98 GHz
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(x)
+    host_s = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls, 1e6 * host_s / calls
 
 
 def trace(fn, steps: int) -> dict:
@@ -82,16 +117,18 @@ def trace(fn, steps: int) -> dict:
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    before = k1_launches()
     with torch.profiler.profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
+    launched = k1_launches() - before
     events = prof.events()
     cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
     device = [(e.name, e.time_range.start, e.time_range.end) for e in events if e.device_type == cuda]
     if not device:
         raise RuntimeError("the profiler saw no device interval; time with CUDA events instead")
     launches = sum(1 for e in events if e.device_type == cpu and "LaunchKernel" in e.name)
-    return summarize(device, launches, statistics.median(walls), steps)
+    return summarize(device, launches, statistics.median(walls), steps, k1_launches=launched)
 
 
 def configurations():
@@ -143,7 +180,8 @@ def main() -> None:
             f"[{card}] {label}: wall {r['wall_ms']:.3f} ms (median of {WALL_RUNS}), device busy "
             f"{r['device_busy_ms']:.3f} ms, idle {100 * r['idle_share']:.1f}%, "
             f"{r['device_items_per_step']:.1f} device items and {r['launch_calls_per_step']:.1f} "
-            f"launch calls per step; largest: {largest}"
+            f"launch calls per step; K1: {r['k1_device_kernels']} device kernels for {r['k1_launches']} "
+            f"launches; torch.softmax items: {r['softmax_items']}; largest: {largest}"
         )
     print(json.dumps({"card": card, "configurations": results}))
 

@@ -1,4 +1,5 @@
-"""The CUDA logsumexp kernel against its plain PyTorch version, on the card.
+"""The CUDA logsumexp kernel (both entry points) against its plain PyTorch
+versions, on the card.
 
 These tests need a CUDA device (the kernel has no CPU mode) and skip
 without one. On a machine with the card and without JAX, run them with
@@ -10,9 +11,18 @@ import math
 import pytest
 import torch
 
-from genjax_tpu_torch.ops import fused_logsumexp, logsumexp, logsumexp_plain
+from genjax_tpu_torch.ops import (
+    fused_logsumexp,
+    fused_logsumexp_ess,
+    logsumexp,
+    logsumexp_ess,
+    logsumexp_ess_plain,
+    logsumexp_plain,
+)
 
 pytestmark = pytest.mark.gpu
+
+SIZES = [1, 127, 4_096, 10_000, 65_541, 262_144, 1_000_000]
 
 
 @pytest.fixture
@@ -24,33 +34,134 @@ def cuda():
 
 def _close(got: torch.Tensor, ref: torch.Tensor) -> None:
     # 1e-5 * max(1, |ref|): the kernel sums in another order than torch.
+    # Special values (NaN, +-inf) must match exactly.
     got, ref = float(got), float(ref)
-    assert got == ref or abs(got - ref) <= 1e-5 * max(1.0, abs(ref)), (got, ref)
+    assert (math.isnan(got) and math.isnan(ref)) or got == ref or abs(got - ref) <= 1e-5 * max(1.0, abs(ref)), (
+        got,
+        ref,
+    )
 
 
-@pytest.mark.parametrize("n", [1, 127, 4_096, 10_000, 65_541, 262_144, 1_000_000])
+def _pair_close(got, ref) -> None:
+    _close(got[0], ref[0])
+    _close(got[1], ref[1])
+
+
+@pytest.mark.parametrize("n", SIZES)
 def test_kernel_matches_plain_version(cuda, n):
     rng = torch.Generator(device=cuda).manual_seed(n)
-    x = 3.0 * torch.randn(n, generator=rng, device=cuda)
-    _close(fused_logsumexp(x), logsumexp_plain(x))
-    _close(fused_logsumexp(x[1:]), logsumexp_plain(x[1:]))  # unaligned start
+    x = 3.0 * torch.randn(n + 3, generator=rng, device=cuda)
+    for v in (x[:n], x[1 : n + 1], x[3 : n + 3]):  # aligned, and unaligned starts
+        _close(fused_logsumexp(v), logsumexp_plain(v))
 
 
-@pytest.mark.parametrize(
-    "values",
-    [
-        [-math.inf] * 70_000 + [0.0] * 1_000,
-        [-math.inf] * 1_000,
-        [0.0, math.inf, -math.inf, 3.0],
-        [0.0, math.nan, 1.0],
-        [],
-    ],
-    ids=["leading_neg_inf_block", "all_neg_inf", "pos_inf", "nan", "empty"],
-)
-def test_kernel_special_cases_match_plain_version_exactly(cuda, values):
-    x = torch.tensor(values, dtype=torch.float32, device=cuda)
+@pytest.mark.parametrize("n", SIZES)
+def test_ess_kernel_matches_plain_version(cuda, n):
+    rng = torch.Generator(device=cuda).manual_seed(n)
+    x = 3.0 * torch.randn(n + 3, generator=rng, device=cuda)
+    for v in (x[:n], x[1 : n + 1], x[3 : n + 3]):
+        _pair_close(fused_logsumexp_ess(v), logsumexp_ess_plain(v))
+
+
+SPECIALS = {
+    "leading_neg_inf_block": [-math.inf] * 70_000 + [0.0] * 1_000,
+    "all_neg_inf": [-math.inf] * 1_000,
+    "pos_inf": [0.0, math.inf, -math.inf, 3.0],
+    "nan": [0.0, math.nan, 1.0],
+    "empty": [],
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPECIALS))
+def test_kernel_special_cases_match_plain_version_exactly(cuda, case):
+    x = torch.tensor(SPECIALS[case], dtype=torch.float32, device=cuda)
     got, ref = fused_logsumexp(x).cpu(), logsumexp_plain(x).cpu()
     assert torch.equal(got, ref) or (got.isnan() and ref.isnan())
+
+
+@pytest.mark.parametrize("case", sorted(SPECIALS))
+def test_ess_kernel_special_cases_match_plain_version(cuda, case):
+    # Special values exactly; the one finite ESS (1000 equal weights)
+    # within 1e-5 relative, since the plain formula rounds log(1000).
+    x = torch.tensor(SPECIALS[case], dtype=torch.float32, device=cuda)
+    got, ref = fused_logsumexp_ess(x), logsumexp_ess_plain(x)
+    assert torch.equal(got[0].cpu(), ref[0].cpu()) or (got[0].isnan() and ref[0].isnan())
+    _close(got[1], ref[1])
+
+
+def test_back_to_back_calls_without_a_sync_all_come_out_right(cuda):
+    # 1000 calls of mixed sizes, starts and entry points queued with no
+    # synchronisation: each finds the ticket counter reset by the last.
+    rng = torch.Generator(device=cuda).manual_seed(0)
+    base = 3.0 * torch.randn(1_100_000, generator=rng, device=cuda)
+    calls = []
+    for i in range(1000):
+        n, start = SIZES[i % len(SIZES)], (7 * i) % 97
+        v = base[start : start + n]
+        calls.append((v, fused_logsumexp_ess(v) if i % 2 else fused_logsumexp(v)))
+    torch.cuda.synchronize()
+    for i, (v, got) in enumerate(calls):
+        if i % 2:
+            _pair_close(got, logsumexp_ess_plain(v))
+        else:
+            _close(got, logsumexp_plain(v))
+
+
+def test_calls_on_two_streams_at_once(cuda):
+    rng = torch.Generator(device=cuda).manual_seed(1)
+    xs = [3.0 * torch.randn(1_000_000 + i, generator=rng, device=cuda) for i in range(4)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    results = []
+    for i in range(200):
+        s = streams[i % 2]
+        with torch.cuda.stream(s):
+            x = xs[i % 4]
+            results.append((x, fused_logsumexp_ess(x) if i % 3 else fused_logsumexp(x)))
+    torch.cuda.synchronize()
+    for i, (x, got) in enumerate(results):
+        if i % 3:
+            _pair_close(got, logsumexp_ess_plain(x))
+        else:
+            _close(got, logsumexp_plain(x))
+
+
+def test_calls_replay_in_a_cuda_graph(cuda):
+    # The workspace outlives the calls, so a captured launch replays with
+    # the counter the previous replay reset; the stream's workspace is made
+    # by an eager call before the capture.
+    x = torch.randn(1_000_000, device=cuda)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fused_logsumexp(x), fused_logsumexp_ess(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        lse = fused_logsumexp(x)
+        pair = fused_logsumexp_ess(x)
+    rng = torch.Generator(device=cuda).manual_seed(2)
+    for scale in (1.0, 3.0, 10.0):
+        x.copy_(scale * torch.randn(x.shape, generator=rng, device=cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        _close(lse, logsumexp_plain(x))
+        _pair_close(pair, logsumexp_ess_plain(x))
+
+
+def test_one_launch_per_call(cuda):
+    x = torch.randn(1_000_000, device=cuda)
+    fused_logsumexp(x), fused_logsumexp_ess(x)  # the stream's workspace exists from here on
+    torch.cuda.synchronize()
+    for fn in (fused_logsumexp, fused_logsumexp_ess):
+        before = fn.launches
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn(x)
+            torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and "genjax_lse" in kernels[0].name, [e.name for e in kernels]
 
 
 def test_dispatch_launches_the_kernel_and_counts(cuda):
@@ -59,5 +170,9 @@ def test_dispatch_launches_the_kernel_and_counts(cuda):
     out = logsumexp(x)
     assert fused_logsumexp.launches == before + 1
     assert out.device.type == "cuda" and out.dtype == torch.float32
+    before = fused_logsumexp_ess.launches
+    lse, ess = logsumexp_ess(x)
+    assert fused_logsumexp_ess.launches == before + 1
+    assert lse.device.type == ess.device.type == "cuda" and lse.shape == ess.shape == ()
     with pytest.raises(ValueError, match="contiguous"):
         fused_logsumexp(torch.zeros(8, 2, device=cuda)[:, 0])

@@ -1,8 +1,10 @@
 """The port's logsumexp (`genjax_tpu_torch.ops`) against the JAX package's.
 
-On the CPU the public `logsumexp` runs its plain PyTorch version; the
-CUDA kernel's own checks are in `tests/test_torch_cuda.py` (card only).
-Inputs are made with numpy and handed to both packages.
+On the CPU the public `logsumexp` and `logsumexp_ess` run their plain
+PyTorch versions; the CUDA kernel's own checks are in
+`tests/test_torch_cuda.py` (card only). Inputs are made with numpy and
+handed to both packages. The kernel's launch arithmetic is plain Python
+and is checked here.
 """
 
 import subprocess
@@ -15,8 +17,18 @@ import pytest
 import torch
 from jax.scipy.special import logsumexp as jax_logsumexp
 
+from genjax_tpu.inference.smc import ess as jax_ess
 from genjax_tpu.ops import fused_logsumexp as pallas_logsumexp
-from genjax_tpu_torch.ops import _build, fused_logsumexp, logsumexp, logsumexp_plain
+from genjax_tpu_torch.ops import (
+    _build,
+    fused_logsumexp,
+    fused_logsumexp_ess,
+    launch_geometry,
+    logsumexp,
+    logsumexp_ess,
+    logsumexp_ess_plain,
+    logsumexp_plain,
+)
 
 torch.set_num_threads(1)
 
@@ -74,14 +86,74 @@ def test_plain_version_casts_to_float32_and_takes_only_vectors():
         logsumexp(torch.zeros(2, 3))
 
 
-def test_kernel_launcher_never_returns_the_plain_result_off_the_card():
+@pytest.mark.parametrize("kernel", [fused_logsumexp, fused_logsumexp_ess], ids=["lse", "lse_ess"])
+def test_kernel_launcher_never_returns_the_plain_result_off_the_card(kernel):
     # The branch a CUDA tensor takes refuses a CPU tensor outright ...
-    before = fused_logsumexp.launches
+    before = kernel.launches
     with pytest.raises(ValueError, match="CUDA device"):
-        fused_logsumexp(torch.zeros(8))
+        kernel(torch.zeros(8))
     with pytest.raises(ValueError, match="contiguous"):
-        fused_logsumexp(torch.zeros(8, 2)[:, 0])
-    assert fused_logsumexp.launches == before
+        kernel(torch.zeros(8, 2)[:, 0])
+    assert kernel.launches == before
+
+
+def _ess_close(got: float, ref: float) -> bool:
+    # ESS tolerance 1e-5 * max(1, |ref|), as for the log-sum-exp: JAX's
+    # formula exp(-logsumexp(2 (x - lse))) carries the first reduction's
+    # rounding twice into the second (measured against float64 up to 16M
+    # values: relative errors under 1.4e-6), and the port's twin repeats
+    # that formula in another summation order.
+    return (np.isnan(got) and np.isnan(ref)) or got == ref or abs(got - ref) <= 1e-5 * max(1.0, abs(ref))
+
+
+@pytest.mark.parametrize("n", [1, 100, 8192, 100_001])
+def test_ess_plain_matches_jax_ess_and_logsumexp(n):
+    x = (3.0 * np.random.default_rng(n).standard_normal(n)).astype(np.float32)
+    lse, ess = logsumexp_ess_plain(torch.from_numpy(x))
+    ref_lse, ref_ess = float(jax_logsumexp(jnp.asarray(x))), float(jax_ess(jnp.asarray(x)))
+    assert abs(float(lse) - ref_lse) <= 1e-5 * max(1.0, abs(ref_lse))
+    assert _ess_close(float(ess), ref_ess), (float(ess), ref_ess)
+    assert lse.dtype == ess.dtype == torch.float32 and lse.shape == ess.shape == ()
+
+
+# The ESS of JAX's `ess` on each special case: empty +inf, all -inf NaN
+# (fault R2, kept until both packages change), any +inf NaN, NaN NaN.
+ESS_OF_SPECIAL_CASES = {
+    "leading_neg_inf_block": 1000.0,
+    "all_neg_inf": np.nan,
+    "pos_inf": np.nan,
+    "two_pos_inf": np.nan,
+    "nan": np.nan,
+    "nan_and_inf": np.nan,
+    "empty": np.inf,
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPECIAL_CASES))
+def test_ess_special_cases_match_jax(case):
+    x = SPECIAL_CASES[case]
+    lse, ess = logsumexp_ess(torch.from_numpy(x))
+    np.testing.assert_array_equal(lse.numpy(), np.asarray(jax_logsumexp(jnp.asarray(x))))
+    ref = float(jax_ess(jnp.asarray(x)))
+    assert _ess_close(float(ess), ref), (float(ess), ref)
+    assert _ess_close(ref, ESS_OF_SPECIAL_CASES[case])
+
+
+N_VALUES = sorted({0, 1, 3, 4095, 4096, 4097, 10_000, 65_541, 1_000_000, 2_162_688, 16_777_216}
+                  | {int(v) for v in np.random.default_rng(0).integers(0, 16_777_217, 40)})
+
+
+@pytest.mark.parametrize("sm_count", [1, 132])
+def test_launch_geometry_covers_n_within_one_resident_wave(sm_count):
+    cap = sm_count * 4  # resident blocks per SM, the kernel's launch bound
+    for n in N_VALUES:
+        blocks, workspace = launch_geometry(n, sm_count)
+        assert workspace == cap and 1 <= blocks <= cap  # every block has a partial slot
+        # One step of the grid reads blocks * 4096 values: one step covers
+        # n unless the wave is full (then the grid-stride loop takes more),
+        # and every block has values to read in the first step.
+        assert blocks * 4096 >= n or blocks == cap
+        assert (blocks - 1) * 4096 < max(n, 1)
 
 
 def test_kernel_build_without_nvcc_raises_a_clear_error(monkeypatch):

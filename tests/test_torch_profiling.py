@@ -32,3 +32,14 @@ def test_summary_of_a_trace():
     assert s["device_items_per_step"] == 1.5
     assert s["launch_calls_per_step"] == 3.0
     assert s["largest"] == [{"name": "a", "count": 2, "ms": 1.0, "share_of_busy": 0.8}]
+    assert s["k1_launches"] == 0 and s["k1_device_kernels"] == 0 and s["softmax_items"] == 0
+
+
+def test_summary_counts_k1_kernels_and_softmax_items():
+    items = [
+        ("void (anonymous namespace)::genjax_lse<true>(float const*, long, float4*, unsigned int*, float*)", 0.0, 2.0),
+        ("void at::native::(anonymous namespace)::cunn_SoftMaxForward<4, float>(...)", 2.0, 4.0),
+        ("void (anonymous namespace)::genjax_lse<false>(float const*, long, float4*, unsigned int*, float*)", 4.0, 5.0),
+    ]
+    s = summarize(items, launch_calls=3, wall_ms=1.0, steps=1, k1_launches=2)
+    assert (s["k1_launches"], s["k1_device_kernels"], s["softmax_items"]) == (2, 2, 1)

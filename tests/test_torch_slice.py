@@ -24,6 +24,7 @@ from genjax_tpu.models.beta_bernoulli import run_sir as jax_run_sir
 from genjax_tpu.models.ssm import run_bootstrap_filter as jax_run_filter
 from genjax_tpu.models.ssm import simulate_ssm_data as jax_simulate_ssm_data
 from genjax_tpu_torch import convert
+from genjax_tpu_torch.entry import entry
 from genjax_tpu_torch.models.beta_bernoulli import beta_bernoulli, run_sir
 from genjax_tpu_torch.models.ssm import run_bootstrap_filter
 
@@ -86,7 +87,7 @@ def test_sir_resampled_particle_mean_in_both_packages():
 
 def test_bootstrap_filter_agrees_with_jax_on_the_same_observations():
     _, ys = jax_simulate_ssm_data(jax.random.key(1), 20)
-    ys_t = convert.tensor(np.asarray(ys))
+    ys_t = convert.tensor(np.asarray(ys), "cpu")
     seeds = 16
     ref = np.asarray(
         jax.jit(jax.vmap(lambda k: jax_run_filter(k, ys, n_particles=K)[0]))(
@@ -111,6 +112,7 @@ def test_particle_collection_carried_from_jax_keeps_its_lml_and_scores():
         (2.0, 2.0),
         {"p": np.asarray(choices["p"]), "v": np.asarray(choices["v"])},
         np.asarray(jcol.get_log_weights()),
+        device="cpu",
     )
     ref_lml = float(jcol.get_log_marginal_likelihood_estimate())
     assert abs(float(col.get_log_marginal_likelihood_estimate()) - ref_lml) <= 1e-5
@@ -122,4 +124,27 @@ def test_particle_collection_carried_from_jax_keeps_its_lml_and_scores():
 
 def test_convert_refuses_a_trace_with_a_missing_address():
     with pytest.raises(tgx.MissingAddress):
-        convert.static_trace(beta_bernoulli, (2.0, 2.0), {"p": np.float32(0.3)})
+        convert.static_trace(beta_bernoulli, (2.0, 2.0), {"p": np.float32(0.3)}, device="cpu")
+
+
+def test_entry_runs_on_the_card_unless_asked_for_the_cpu():
+    # The default device is CUDA: without a card entry() refuses rather
+    # than running on the CPU.
+    if torch.cuda.is_available():
+        assert entry()[1][0].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+    fn, (rng,) = entry("cpu")
+    lml, z_mean = fn(rng)
+    assert lml.device.type == "cpu" and np.isfinite(float(lml)) and np.isfinite(float(z_mean))
+
+
+def test_convert_puts_state_on_the_card_by_default():
+    x = np.zeros(3, np.float32)
+    if torch.cuda.is_available():
+        assert convert.tensor(x).device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):  # a CPU-only torch asserts
+            convert.tensor(x)
+    assert convert.tensor(x, "cpu").device.type == "cpu"

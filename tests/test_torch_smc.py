@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.scipy.special import logsumexp as jax_logsumexp
 
 from genjax_tpu.core.gather import take_rows as jax_take_rows
 from genjax_tpu.inference.smc import ParticleCollection as JaxParticleCollection
@@ -32,21 +33,27 @@ def _log_weights(seed: int, spread: float = 3.0, n: int = K) -> np.ndarray:
     return (spread * np.random.default_rng(seed).standard_normal(n)).astype(np.float32)
 
 
+@pytest.mark.parametrize("given_lse", [False, True], ids=["lse_computed", "lse_given"])
 @pytest.mark.parametrize("seed,spread,n", [(0, 1.0, K), (1, 3.0, K), (2, 8.0, K), (3, 3.0, 5000)])
-def test_systematic_cum_counts_match_jax(seed, spread, n):
+def test_systematic_cum_counts_match_jax(seed, spread, n, given_lse):
     lw = _log_weights(seed, spread)
     key = jax.random.key(seed)
     u0 = jax.random.uniform(key, (), dtype=jnp.float32)  # the draw inside JAX's function
     ref = np.asarray(jax_cum_counts(key, jnp.asarray(lw), n))
-    got = systematic_cum_counts(torch.tensor(np.asarray(u0)), torch.from_numpy(lw), n).numpy()
-    # Both sides round a float32 softmax and cumulative sum, in different
-    # orders, so a count whose exact value n * cdf_i - u0 sits within
-    # rounding of an integer (a floor tie) may land one apart. Every
+    # A caller that holds logsumexp(lw) already (the filter, `resample`)
+    # hands it over; JAX's own value stands in for it here.
+    lse = torch.tensor(np.asarray(jax_logsumexp(jnp.asarray(lw)))) if given_lse else None
+    got = systematic_cum_counts(torch.tensor(np.asarray(u0)), torch.from_numpy(lw), n, lse).numpy()
+    # Both sides round float32 normalised weights and a cumulative sum, in
+    # different orders, so a count whose exact value n * cdf_i - u0 sits
+    # within rounding of an integer (a floor tie) may land one apart. Every
     # mismatch must be such a tie (within 0.01 of an integer in float64),
     # off by one, and ties stay rare: at most 2 in 10^3 entries. (Measured
-    # over 20 seeds: 6.8e-4 of entries; float64-exact counts themselves
-    # differ from JAX's float32 ones at 3.8e-4, so 1 in 10^4 is out of
-    # reach of any float32 implementation.)
+    # over 20 seeds and spreads 1, 3, 8 at K=8192: 2.5e-4 of entries, at
+    # most 14 in one vector, with `exp(lw - lse)` divided by its total;
+    # 5.0e-4 with `torch.softmax`. float64-exact counts themselves differ
+    # from JAX's float32 ones at 3.8e-4, so 1 in 10^4 is out of reach of
+    # any float32 implementation.)
     w = np.exp(lw.astype(np.float64) - lw.max())
     exact = n * np.cumsum(w / w.sum()) - float(u0)
     mismatch = np.nonzero(got != ref)[0]
