@@ -7,8 +7,15 @@ back to back and on two streams, and times both beside their bound and
 `torch.logsumexp`. Then it drives the particle path through the package's
 own entry points: beta-bernoulli SIR at K=1,000,000 and the SSM bootstrap
 filter (the `entry()` sweep at K=4096, T=20, and K=1,000,000, T=50),
-checking that each filter step reduces its weights with one launch. Every
-phase raises on failure; nothing is caught.
+checking that each filter step reduces its weights with one launch. Then
+the MCMC path: logistic-regression HMC at C=8192 chains, N=256, D=16,
+eps=0.02, L=5, S=10 (timed, held against the CPU plain path, checked for
+device synchronisations, and timed beside a hand-written PyTorch HMC of
+the same math), MALA at C=8192 (timed), and polynomial-regression IS +
+MALA at K=8192 particles over 64 points with 20 sweeps, whose LML and
+resample each launch the logsumexp kernel once (the kernel also held
+against its plain twin on that run's log weights). Every phase raises on
+failure; nothing is caught.
 
 Run from the repository root, with one CUDA card visible:
 
@@ -35,8 +42,9 @@ FILTER_SEEDS = 8
 BIG_FILTER_PARTICLES = 1_000_000
 BIG_FILTER_STEPS = 50
 BIG_FILTER_RUNS = 3
-# 4096 is entry()'s K, 10,000 the first planned filter cell's, 1M the SIR's.
-KERNEL_SIZES = (1, 127, 4_096, 10_000, 65_541, 262_144, 1_000_000, 16_777_216)
+# 4096 is entry()'s K, 8192 polyreg's (a grid of two blocks), 10,000 the
+# first planned filter cell's, 1M the SIR's.
+KERNEL_SIZES = (1, 127, 4_096, 8_192, 10_000, 65_541, 262_144, 1_000_000, 16_777_216)
 TIMED_SIZES = (4_096, 10_000, 1_000_000, 16_777_216)
 MAIN_PATH_N = 1_000_000  # the size of the kernels' line: SIR and the large filter
 TIMED_CALLS = 50
@@ -49,6 +57,11 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS_PER_VALUE = {"logsumexp": 4, "logsumexp_ess": 6}
 OUTPUTS = {"logsumexp": 1, "logsumexp_ess": 2}
+# Timed runs of the MCMC configurations (`models/logreg.py::BenchConfig`,
+# `models/polyreg.py::BenchConfig`).
+HMC_RUNS = 7
+MALA_RUNS = 5
+POLYREG_RUNS = 8
 
 
 def check(ok: bool, what: str) -> None:
@@ -361,6 +374,198 @@ def phase_filter(ops, card: str) -> None:
           f"{BIG_FILTER_STEPS - 1} at T={BIG_FILTER_STEPS}; none in the resample branch or the final resample")
 
 
+def timed_runs(fn, runs: int) -> tuple[list[float], list]:
+    """Host-clock ms of `runs` calls of `fn`, each between two device
+    synchronisations, after one untimed call; and the calls' results."""
+    fn()
+    times, results = [], []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results.append(fn())
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times, results
+
+
+def within_combined_se(a: torch.Tensor, b: torch.Tensor, what: str, n_se: float = 5.0) -> float:
+    """Per-column means of two independent samples (rows are draws) agree
+    within `n_se` combined standard errors; the largest distance in SE."""
+    a, b = a.double().cpu(), b.double().cpu()
+    se = (a.var(0) / a.shape[0] + b.var(0) / b.shape[0]).sqrt()
+    dist = ((a.mean(0) - b.mean(0)).abs() / se).max().item()
+    check(math.isfinite(dist) and dist < n_se, f"{what}: means {a.mean(0).tolist()} vs {b.mean(0).tolist()} "
+          f"are {dist:.2f} combined SE apart")
+    return dist
+
+
+def handwritten_hmc(rng: torch.Generator, X: torch.Tensor, ys: torch.Tensor, w0: torch.Tensor, cfg) -> torch.Tensor:
+    """The same leapfrog and accept math as the port's HMC on the same
+    density, written directly in PyTorch: S steps of L leapfrog steps, one
+    forward and backward pass each, plus one at each step's start and a
+    forward-only pass at its end (the counterpart of `bench.py:646-703`)."""
+    yf = ys.to(torch.float32)
+    eps = cfg.eps
+
+    def logdensity(w):
+        logits = w @ X.mT
+        ll = yf * torch.nn.functional.logsigmoid(logits) + (1.0 - yf) * torch.nn.functional.logsigmoid(-logits)
+        return ll.sum(-1) - 0.5 * (w * w).sum(-1)
+
+    def value_and_grad(w):
+        w = w.detach().requires_grad_()
+        with torch.enable_grad():
+            lp = logdensity(w)
+            (g,) = torch.autograd.grad(lp.sum(), w)
+        return lp.detach(), g
+
+    w = w0
+    with torch.no_grad():
+        for _ in range(cfg.n_steps):
+            p0 = torch.randn(w.shape, generator=rng, device=w.device)
+            lp0, g = value_and_grad(w)
+            wi, pi = w, p0
+            for _ in range(cfg.L):
+                pi = pi + 0.5 * eps * g
+                wi = wi + eps * pi
+                _, g = value_and_grad(wi)
+                pi = pi + 0.5 * eps * g
+            alpha = logdensity(wi) - lp0 - 0.5 * (pi * pi).sum(-1) + 0.5 * (p0 * p0).sum(-1)
+            accept = torch.log(torch.rand(alpha.shape, generator=rng, device=w.device)) < alpha
+            w = torch.where(accept[:, None], wi, w)
+    return w
+
+
+def count_syncs(fn) -> int:
+    """Device synchronisations that PyTorch's sync debug mode reports
+    while `fn` runs."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_hmc(gx, card: str) -> None:
+    """Logistic-regression HMC at the bench's configuration, then MALA at
+    the same width, through the port's entry points."""
+    from genjax_tpu_torch.models.logreg import BenchConfig, init_chains, run_hmc_chains, run_mala_chains
+
+    cfg = BenchConfig()
+    X_cpu, ys_cpu = cfg.data("cpu")
+    X, ys = cfg.data("cuda")
+    rng = torch.Generator(device="cuda").manual_seed(4)
+
+    def run():
+        return run_hmc_chains(rng, X, ys, n_chains=cfg.n_chains, n_steps=cfg.n_steps, eps=cfg.eps, L=cfg.L)
+
+    times, results = timed_runs(run, HMC_RUNS)
+    ms = statistics.median(times)
+    w, accs = results[-1]
+    check(w.shape == (cfg.n_chains, cfg.dim) and accs.shape == (cfg.n_chains, cfg.n_steps), "HMC output shapes")
+    rate = accs.float().mean().item()
+    check(math.isfinite(rate) and 0.0 < rate <= 1.0, f"HMC accept rate {rate}")
+    check(bool(torch.isfinite(w).all()), "HMC final w not finite")
+    w_cpu, _ = run_hmc_chains(
+        torch.Generator().manual_seed(5), X_cpu, ys_cpu, n_chains=cfg.n_chains, n_steps=cfg.n_steps, eps=cfg.eps,
+        L=cfg.L,
+    )
+    dist = within_combined_se(w, w_cpu, "HMC final w, CUDA against the CPU plain path")
+    print(f"HMC C={cfg.n_chains} N={cfg.n_data} D={cfg.dim} eps={cfg.eps} L={cfg.L} S={cfg.n_steps}: accept rate "
+          f"{rate:.4f}; final w mean per dimension within {dist:.2f} combined SE of the CPU plain path's (limit 5)")
+
+    # Device synchronisations over S MH steps, the chains made beforehand.
+    chains = init_chains(rng, X, ys, cfg.n_chains)
+    request = gx.HMC(gx.Selection.at["w"], cfg.eps, L=cfg.L)
+    syncs = count_syncs(lambda: gx.run_chains(rng, chains, request, cfg.n_steps))
+    check(syncs == 0, f"run_chains made {syncs} device synchronisations over {cfg.n_steps} MH steps")
+    print(f"HMC run_chains: {syncs} device synchronisations over {cfg.n_steps} MH steps (0 per step)")
+
+    w0 = 0.1 * torch.randn(cfg.n_chains, cfg.dim, generator=rng, device="cuda")
+    hw_times, _ = timed_runs(lambda: handwritten_hmc(rng, X, ys, w0, cfg), HMC_RUNS)
+    hw_ms = statistics.median(hw_times)
+    steps = cfg.n_chains * cfg.n_steps
+    print(
+        f"[{card}] HMC C={cfg.n_chains} S={cfg.n_steps} L={cfg.L} (N={cfg.n_data}, D={cfg.dim}): {ms:.3f} ms/run "
+        f"(median of {HMC_RUNS}: {', '.join(f'{t:.2f}' for t in times)}), {steps / (ms * 1e-3):.4g} chain-steps/s; "
+        f"hand-written PyTorch HMC, same math and config: {hw_ms:.3f} ms/run (median of {HMC_RUNS}); "
+        f"port / hand-written = {ms / hw_ms:.3f} (host clock between syncs, chain init included in the port's run)"
+    )
+
+    mala_times, mala_results = timed_runs(
+        lambda: run_mala_chains(rng, X, ys, n_chains=cfg.n_chains, n_steps=cfg.n_steps, eps=cfg.mala_eps), MALA_RUNS
+    )
+    rates = []
+    for w, accs in mala_results:
+        rates.append(accs.float().mean().item())
+        check(bool(torch.isfinite(w).all()) and rates[-1] > 0.0,
+              f"MALA: finite {bool(torch.isfinite(w).all())}, accept {rates[-1]}")
+    print(f"[{card}] MALA C={cfg.n_chains} S={cfg.n_steps} eps={cfg.mala_eps}: accept rate "
+          f"{statistics.fmean(rates):.4f}, {statistics.median(mala_times):.3f} ms/run (median of {MALA_RUNS}: "
+          f"{', '.join(f'{t:.2f}' for t in mala_times)})")
+
+
+def phase_polyreg(gx, ops, card: str) -> None:
+    """Polynomial-regression IS + MALA at the bench's configuration: K1 held
+    against its plain twin on the run's own log weights, the LML held
+    against the CPU plain path, the K1 launches of each run against the
+    two the code makes (the LML and the resample)."""
+    from genjax_tpu_torch.models.polyreg import BenchConfig, polynomial_regression, run_is_mh
+
+    cfg = BenchConfig()
+    xs_cpu, ys_cpu = cfg.data("cpu")
+    xs, ys = cfg.data("cuda")
+
+    def launches() -> tuple[int, int]:
+        return ops.fused_logsumexp.launches, ops.fused_logsumexp_ess.launches
+
+    def run(rng: torch.Generator):
+        return run_is_mh(rng, xs, ys, cfg.n_particles, cfg.n_sweeps, obs_noise=cfg.obs_noise, step_size=cfg.step_size)
+
+    # The log weights that a run reduces twice (its first draws, from the
+    # same seed), through the kernel and its plain twin. This launch is a
+    # comparison, not one of the main path's, so it leaves the count alone.
+    target = gx.Target(polynomial_regression, (xs, cfg.obs_noise), gx.ChoiceMap.kw(ys=ys))
+    _, lw = target.importance(torch.Generator(device="cuda").manual_seed(100), gx.ChoiceMap.empty(), n=cfg.n_particles)
+    counted = ops.fused_logsumexp.launches
+    got = ops.fused_logsumexp(lw)
+    ops.fused_logsumexp.launches = counted
+    ok, err = close(got, ops.logsumexp_plain(lw))
+    check(ok, f"logsumexp on the polyreg log weights (K={cfg.n_particles}): {float(got)} vs plain "
+              f"{float(ops.logsumexp_plain(lw))}")
+    print(f"logsumexp == plain on the polyreg log weights (K={cfg.n_particles}): |err| {err:.3e} "
+          f"(tolerance 1e-5 * max(1, |ref|))")
+
+    def counted_run(seed: int):
+        before = launches()
+        lml, coeffs = run(torch.Generator(device="cuda").manual_seed(seed))
+        counts = tuple(a - b for a, b in zip(launches(), before))
+        check(counts == (2, 0), f"polyreg run: {counts} (logsumexp, logsumexp_ess) launches, not (2, 0)")
+        return lml, coeffs
+
+    seeds = iter(range(100, 200))
+    times, results = timed_runs(lambda: counted_run(next(seeds)), POLYREG_RUNS)
+    gpu_lml = torch.stack([lml for lml, _ in results]).double().cpu()
+    check(all(bool(torch.isfinite(c).all()) for _, c in results), "polyreg coefficients not finite")
+    cpu_lml = torch.stack([
+        run_is_mh(torch.Generator().manual_seed(seed), xs_cpu, ys_cpu, cfg.n_particles, cfg.n_sweeps,
+                  obs_noise=cfg.obs_noise, step_size=cfg.step_size)[0]
+        for seed in range(POLYREG_RUNS)
+    ]).double()
+    dist = within_combined_se(gpu_lml[:, None], cpu_lml[:, None], "polyreg LML, CUDA against the CPU plain path")
+    ms = statistics.median(times)
+    moves = cfg.n_particles * cfg.n_sweeps
+    print(f"polyreg K={cfg.n_particles} over {cfg.n_points} points, {cfg.n_sweeps} MALA sweeps: mean LML "
+          f"CUDA {gpu_lml.mean():.4f}, CPU plain path {cpu_lml.mean():.4f} ({dist:.2f} combined SE apart, limit 5); "
+          f"K1 launches per run: 2 logsumexp (the LML and the resample), 0 logsumexp_ess")
+    print(f"[{card}] polyreg IS({cfg.n_particles}) + MALA x{cfg.n_sweeps}: {ms:.3f} ms/run (median of "
+          f"{POLYREG_RUNS}: {', '.join(f'{t:.2f}' for t in times)}), {moves / (ms * 1e-3):.4g} rejuvenation moves/s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -380,16 +585,24 @@ def main() -> None:
 
     kernels = phase_kernel(ops, card)
 
-    # The main path, with every launch count set to 0 just before it.
-    ops.fused_logsumexp.launches = ops.fused_logsumexp_ess.launches = 0
-    phase_sir(gx, ops, card)
-    sir = {"logsumexp": ops.fused_logsumexp.launches, "logsumexp_ess": ops.fused_logsumexp_ess.launches}
-    phase_filter(ops, card)
-    launches = {"logsumexp": ops.fused_logsumexp.launches, "logsumexp_ess": ops.fused_logsumexp_ess.launches}
-    for name, count in launches.items():
-        check(count > 0, f"the main path launched no {name} kernel")
-    print("kernel launches on the main path: " + ", ".join(
-        f"{name} {count} (SIR {sir[name]}, filters {count - sir[name]})" for name, count in launches.items()))
+    # The main paths, each with every launch count set to 0 just before it
+    # and read just after.
+    def drive(phase) -> dict:
+        ops.fused_logsumexp.launches = ops.fused_logsumexp_ess.launches = 0
+        phase()
+        return {"logsumexp": ops.fused_logsumexp.launches, "logsumexp_ess": ops.fused_logsumexp_ess.launches}
+
+    paths = {
+        "particle": drive(lambda: (phase_sir(gx, ops, card), phase_filter(ops, card))),
+        "mcmc": drive(lambda: (phase_hmc(gx, card), phase_polyreg(gx, ops, card))),
+    }
+    launches = {name: sum(p[name] for p in paths.values()) for name in ("logsumexp", "logsumexp_ess")}
+    for name, count in paths["particle"].items():
+        check(count > 0, f"the particle path launched no {name} kernel")
+    check(paths["mcmc"]["logsumexp"] > 0, "the MCMC path (polyreg) launched no logsumexp kernel")
+    print("kernel launches on the main paths: " + ", ".join(
+        f"{name} {count} (particle path {paths['particle'][name]}, MCMC path {paths['mcmc'][name]})"
+        for name, count in launches.items()))
 
     print(json.dumps({"kernels": [{
         "name": name,

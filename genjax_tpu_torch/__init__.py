@@ -1,4 +1,5 @@
-"""genjax_tpu_torch: the particle path of genjax_tpu on PyTorch and CUDA.
+"""genjax_tpu_torch: the particle and MCMC paths of genjax_tpu on PyTorch
+and CUDA.
 
 A port of `genjax_tpu` (JAX) to PyTorch, module for module
 (`genjax_tpu_torch/inference/smc.py` mirrors `genjax_tpu/inference/smc.py`).
@@ -9,36 +10,56 @@ torch and numpy, never jax.
 """
 
 from genjax_tpu_torch.core.choice_map import ChoiceMap, Selection
-from genjax_tpu_torch.core.gfi import GenerativeFunction, Trace
+from genjax_tpu_torch.core.diff import Diff
+from genjax_tpu_torch.core.gfi import GenerativeFunction, Trace, Update
 from genjax_tpu_torch.core.pytree import Pytree
-from genjax_tpu_torch.distributions import beta, flip, normal, uniform
+from genjax_tpu_torch.core.requests import EmptyRequest, Regenerate
+from genjax_tpu_torch.core.typing import per_particle
+from genjax_tpu_torch.distributions import bernoulli, beta, flip, mv_normal_diag, normal, uniform
 from genjax_tpu_torch.inference import (
+    HMC,
+    MALA,
     BootstrapFilter,
     ImportanceK,
     ParticleCollection,
     Target,
     ess,
+    mh,
+    mh_chain,
+    run_chains,
 )
 from genjax_tpu_torch.lang import AddressReuse, MissingAddress, gen
 from genjax_tpu_torch.ops import logsumexp
 
 __all__ = [
+    "HMC",
+    "MALA",
     "AddressReuse",
     "BootstrapFilter",
     "ChoiceMap",
+    "Diff",
+    "EmptyRequest",
     "GenerativeFunction",
     "ImportanceK",
     "MissingAddress",
     "ParticleCollection",
     "Pytree",
+    "Regenerate",
     "Selection",
     "Target",
     "Trace",
+    "Update",
+    "bernoulli",
     "beta",
     "ess",
     "flip",
     "gen",
     "logsumexp",
+    "mh",
+    "mh_chain",
+    "mv_normal_diag",
     "normal",
+    "per_particle",
+    "run_chains",
     "uniform",
 ]

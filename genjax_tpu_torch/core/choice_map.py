@@ -4,9 +4,11 @@ Counterpart of `genjax_tpu/core/choice_map.py`, restricted to string
 addresses (and tuples of them). A choice map is a trie: `Static` nodes
 map address components to sub-maps, `Choice` leaves hold values, `Or`
 is a left-priority union. The trie's keys live in the pytree context, so
-resolving an address costs nothing on the device. A value may carry a
-leading particle axis; a value without one (an observation) is shared by
-every particle.
+resolving an address costs nothing on the device. A `Choice` records
+whether its value carries a leading particle axis (`batched`); a value
+without one (an observation) is shared by every particle. The record is
+set where the value is made (a trace's draw, or a value marked with
+`core.typing.per_particle`), never read off its size.
 
 Dynamic (integer-array) addresses, masks and switch nodes come with the
 combinators.
@@ -14,7 +16,8 @@ combinators.
 
 from typing import Any, Iterable
 
-from genjax_tpu_torch.core.pytree import Pytree
+from genjax_tpu_torch.core.pytree import Pytree, n_leaves
+from genjax_tpu_torch.core.typing import is_per_particle, plain
 
 Address = str | tuple[str, ...]
 
@@ -188,6 +191,14 @@ class ChoiceMap(Pytree):
     def static_is_empty(self) -> bool:
         return False
 
+    def value_is_batched(self) -> bool:
+        """Whether the value at the root carries the particle axis."""
+        return False
+
+    def batched_leaves(self) -> list[bool]:
+        """The particle-axis record of each leaf, in `tree_leaves` order."""
+        raise NotImplementedError
+
     # -- derived interface -------------------------------------------------
 
     def get_submap(self, *addresses: Address) -> "ChoiceMap":
@@ -217,8 +228,10 @@ class ChoiceMap(Pytree):
         return _empty
 
     @staticmethod
-    def choice(v: Any) -> "ChoiceMap":
-        return Choice(v)
+    def choice(v: Any, batched: bool = False) -> "ChoiceMap":
+        """A map holding `v` at the root. A value marked with
+        `per_particle` (or `batched=True`) carries the particle axis."""
+        return Choice(plain(v), batched or is_per_particle(v))
 
     @staticmethod
     def entry(v: Any, *addrs: str) -> "ChoiceMap":
@@ -248,6 +261,10 @@ class ChoiceMap(Pytree):
     def __or__(self, other: "ChoiceMap") -> "ChoiceMap":
         return Or.build(self, other)
 
+    def merge(self, other: "ChoiceMap") -> "ChoiceMap":
+        """The union of two maps; `self` wins where both hold a value."""
+        return self | other
+
     def __call__(self, *addresses: Address) -> "ChoiceMap":
         return self.get_submap(*addresses)
 
@@ -263,15 +280,23 @@ class ChoiceMap(Pytree):
 
 @Pytree.dataclass
 class Choice(ChoiceMap):
-    """A choice map holding a single value at the root."""
+    """A choice map holding a single value at the root, with the record of
+    whether it carries the particle axis."""
 
     v: Any
+    batched: bool = Pytree.static(default=False)
 
     def filter(self, selection: Selection) -> ChoiceMap:
         return self if selection.check() else _empty
 
     def get_value(self) -> Any:
         return self.v
+
+    def value_is_batched(self) -> bool:
+        return self.batched
+
+    def batched_leaves(self) -> list[bool]:
+        return [self.batched] * n_leaves(self.v)
 
     def get_inner_map(self, addr: str) -> ChoiceMap:
         return _empty
@@ -298,6 +323,9 @@ class Static(ChoiceMap):
 
     def static_is_empty(self) -> bool:
         return not self.children
+
+    def batched_leaves(self) -> list[bool]:
+        return [b for sub in self.children.values() for b in sub.batched_leaves()]
 
 
 @Pytree.dataclass
@@ -328,6 +356,12 @@ class Or(ChoiceMap):
     def get_value(self) -> Any:
         left = self.c1.get_value()
         return self.c2.get_value() if left is None else left
+
+    def value_is_batched(self) -> bool:
+        return (self.c1 if self.c1.has_value() else self.c2).value_is_batched()
+
+    def batched_leaves(self) -> list[bool]:
+        return self.c1.batched_leaves() + self.c2.batched_leaves()
 
     def get_inner_map(self, addr: str) -> ChoiceMap:
         return self.c1.get_inner_map(addr) | self.c2.get_inner_map(addr)

@@ -1,9 +1,12 @@
-"""Core GFI type vocabulary: `Weight`, `Score`, `Arguments`.
+"""Core GFI type vocabulary: `Weight`, `Score`, `Arguments`, `Argdiffs`,
+`Retdiff`, and the edit-request base classes.
 
-Counterpart of `genjax_tpu/core/concepts.py`. The edit-request hierarchy
-comes with edits.
+Counterpart of `genjax_tpu/core/concepts.py`.
 """
 
+from typing import Any
+
+from genjax_tpu_torch.core.pytree import Pytree
 from genjax_tpu_torch.core.typing import FloatArray
 
 Weight = FloatArray
@@ -14,3 +17,30 @@ Score = FloatArray
 
 Arguments = tuple
 """The type of argument tuples to generative functions."""
+
+Argdiffs = tuple
+"""Arguments whose leaves are `Diff` values (see `core/diff.py`)."""
+
+Retdiff = Any
+"""A return value whose leaves are `Diff` values."""
+
+
+class EditRequest(Pytree):
+    """A request for an SMCP3 move on a trace: `edit` returns the new
+    trace, the incremental weight of the move, the retdiff and the
+    backward request."""
+
+    def edit(self, rng, tr, argdiffs: Argdiffs) -> tuple[Any, Weight, Retdiff, "EditRequest"]:
+        raise NotImplementedError
+
+
+class PrimitiveEditRequest(EditRequest):
+    """An edit request whose implementation is the generative function's
+    own `edit` method."""
+
+    def edit(self, rng, tr, argdiffs: Argdiffs):
+        return tr.get_gen_fn().edit(rng, tr, self, argdiffs)
+
+
+class NotSupportedEditRequest(Exception):
+    pass

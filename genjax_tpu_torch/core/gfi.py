@@ -1,23 +1,36 @@
 """`Trace` and `GenerativeFunction`: the generative function interface.
 
 Counterpart of `genjax_tpu/core/gfi.py`: `simulate`, `assess`, `generate`
-and `importance`. Edits (update, regenerate, project) and the postfix
-combinators come later.
+and `importance`; `project`, `edit` and `update` with the `Update` edit
+request (`Regenerate` and `EmptyRequest` are in `core/requests.py`). The
+postfix combinators come later.
 
 Where JAX takes a PRNG key, these methods take a `torch.Generator` (on
 the CPU or on a CUDA device); the sites of a model draw from it in
 program order. Where JAX `vmap`s a method over K keys, these methods take
 an optional particle count `n`: the model body runs once, on tensors with
 a leading particle axis of length `n`, while the model's arguments and
-constrained values are stored once, unbatched.
+constrained values are stored once, unbatched. Each trace records which
+of its leaves carry the particle axis (`Trace.batched_leaves`); an edit
+reads the particle count from that record and keeps it.
 """
 
 from typing import Generic, TypeVar
 
 import torch
+import torch.utils._pytree as pytree
 
-from genjax_tpu_torch.core.choice_map import ChoiceMap
-from genjax_tpu_torch.core.concepts import Arguments, Score, Weight
+from genjax_tpu_torch.core.choice_map import ChoiceMap, Selection
+from genjax_tpu_torch.core.concepts import (
+    Argdiffs,
+    Arguments,
+    EditRequest,
+    PrimitiveEditRequest,
+    Retdiff,
+    Score,
+    Weight,
+)
+from genjax_tpu_torch.core.diff import Diff
 from genjax_tpu_torch.core.pytree import Pytree
 
 R = TypeVar("R")
@@ -42,6 +55,49 @@ class Trace(Generic[R], Pytree):
 
     def get_gen_fn(self) -> "GenerativeFunction[R]":
         raise NotImplementedError
+
+    # -- the particle-axis record ---------------------------------------------
+
+    def batched_leaves(self) -> list[bool]:
+        """For each leaf of the trace (in `tree_leaves` order), whether it
+        carries the leading particle axis."""
+        raise NotImplementedError
+
+    def args_record(self) -> list[bool]:
+        """For each leaf of the arguments, whether it carries the particle
+        axis."""
+        raise NotImplementedError
+
+    def as_single(self) -> "Trace[R]":
+        """The same trace with a record that says no leaf carries the
+        particle axis: what a trace becomes once one particle's row has
+        been taken from every per-particle leaf."""
+        raise NotImplementedError
+
+    def particle_count(self) -> int | None:
+        """The length of the particle axis, read from the record; None for
+        a trace of one particle."""
+        for leaf, batched in zip(pytree.tree_leaves(self), self.batched_leaves()):
+            if batched:
+                return leaf.shape[0]
+        return None
+
+    # -- edits ------------------------------------------------------------------
+
+    def edit(
+        self, rng: torch.Generator, request: EditRequest, argdiffs: Argdiffs | None = None
+    ) -> tuple["Trace[R]", Weight, Retdiff, EditRequest]:
+        return request.edit(rng, self, Diff.no_change(self.get_args()) if argdiffs is None else argdiffs)
+
+    def update(
+        self, rng: torch.Generator, constraint: ChoiceMap, argdiffs: Argdiffs | None = None
+    ) -> tuple["Trace[R]", Weight, Retdiff, ChoiceMap]:
+        return self.get_gen_fn().update(
+            rng, self, constraint, Diff.no_change(self.get_args()) if argdiffs is None else argdiffs
+        )
+
+    def project(self, rng: torch.Generator, selection: Selection) -> Weight:
+        return self.get_gen_fn().project(rng, self, selection)
 
 
 class GenerativeFunction(Generic[R], Pytree):
@@ -69,9 +125,12 @@ class GenerativeFunction(Generic[R], Pytree):
         """Sample a trace; with `n`, a batch of `n` traces."""
         raise NotImplementedError
 
-    def assess(self, sample: ChoiceMap, args: Arguments) -> tuple[Score, R]:
-        """The log density of a fully constraining sample (batched values
-        give one score per particle)."""
+    def assess(
+        self, sample: ChoiceMap, args: Arguments, n: int | None = None
+    ) -> tuple[Score, R]:
+        """The log density of a fully constraining sample. Values recorded
+        as per particle give one score per particle; with `n`, the score
+        has shape `(n,)` even where every value is shared."""
         raise NotImplementedError
 
     def generate(
@@ -80,9 +139,17 @@ class GenerativeFunction(Generic[R], Pytree):
         constraint: ChoiceMap,
         args: Arguments,
         n: int | None = None,
+        like: Trace[R] | None = None,
     ) -> tuple[Trace[R], Weight]:
         """Importance-sample a trace consistent with `constraint`; the weight
-        is `log P(t)/Q(t; constraint)`. With `n`, the weight has shape `(n,)`."""
+        is `log P(t)/Q(t; constraint)`. With `n`, the weight has shape `(n,)`.
+
+        `like` is a trace of this function from an earlier call with the
+        same particle-axis record (its arguments, constraint and sites
+        carry the axis where this call's do): the record is read from it,
+        not learned from `PerParticle` marks, so the arguments may come
+        plain. The caller vouches for the match, as the body of JAX's
+        `scan` is traced once for every step."""
         raise NotImplementedError
 
     def importance(
@@ -94,6 +161,51 @@ class GenerativeFunction(Generic[R], Pytree):
     ) -> tuple[Trace[R], Weight]:
         """Alias for `generate` (Gen's traditional name)."""
         return self.generate(rng, constraint, args, n)
+
+    def project(self, rng: torch.Generator, trace: Trace[R], selection: Selection) -> Weight:
+        """The part of the trace's score that the selected addresses
+        contribute."""
+        raise NotImplementedError
+
+    def edit(
+        self,
+        rng: torch.Generator,
+        trace: Trace[R],
+        edit_request: EditRequest,
+        argdiffs: Argdiffs,
+    ) -> tuple[Trace[R], Weight, Retdiff, EditRequest]:
+        """Respond to an SMCP3 edit request: the new trace, the incremental
+        weight, the retdiff and the backward request. The new trace keeps
+        the old one's particle-axis record."""
+        raise NotImplementedError
+
+    def update(
+        self,
+        rng: torch.Generator,
+        trace: Trace[R],
+        constraint: ChoiceMap,
+        argdiffs: Argdiffs,
+    ) -> tuple[Trace[R], Weight, Retdiff, ChoiceMap]:
+        """Constrain the addresses of `constraint` and reweight: returns
+        `(new_trace, weight, retdiff, discarded_choices)`, where `weight`
+        is the new score minus the old when the arguments are unchanged.
+
+        >>> import torch
+        >>> import genjax_tpu_torch as gx
+        >>> @gx.gen
+        ... def m():
+        ...     return gx.normal(0.0, 1.0) @ "x"
+        >>> tr = m.simulate(torch.Generator().manual_seed(0), (), n=4)
+        >>> new, w, _, discard = m.update(
+        ...     torch.Generator(), tr, gx.ChoiceMap.kw(x=0.0), gx.Diff.no_change(())
+        ... )
+        >>> bool(torch.allclose(w, new.get_score() - tr.get_score()))
+        True
+        >>> bool(torch.equal(discard["x"], tr.get_choices()["x"]))
+        True
+        """
+        tr, w, rd, bwd = Update(constraint).edit(rng, trace, argdiffs)
+        return tr, w, rd, bwd.constraint
 
 
 @Pytree.dataclass
@@ -108,3 +220,11 @@ class GenerativeFunctionClosure(Generic[R], Pytree):
         from genjax_tpu_torch.lang.interop import trace
 
         return trace(addr, self.gen_fn, self.args)
+
+
+@Pytree.dataclass
+class Update(PrimitiveEditRequest):
+    """Request: constrain the addresses of `constraint`, reweight the rest.
+    The backward request is an `Update` holding the discarded choices."""
+
+    constraint: ChoiceMap

@@ -11,6 +11,7 @@ particle count.
 import dataclasses
 from typing import Any, TypeVar
 
+import torch
 import torch.utils._pytree as pytree
 
 C = TypeVar("C", bound=type)
@@ -43,6 +44,7 @@ class Pytree:
                     object.__setattr__(obj, name, val)
                 return obj
 
+            dkls._leafless = not dyn_names
             pytree.register_pytree_node(
                 dkls,
                 flatten,
@@ -68,3 +70,13 @@ class Pytree:
 
 
 tree_map = pytree.tree_map
+
+
+def n_leaves(tree: Any) -> int:
+    """The number of leaves of `tree`; a tensor is one, and a dataclass
+    with only static fields (a generative function) none, with no flatten."""
+    if isinstance(tree, torch.Tensor):
+        return 1
+    if type(tree).__dict__.get("_leafless", False):
+        return 0
+    return len(pytree.tree_leaves(tree))

@@ -1,4 +1,5 @@
-"""Type aliases, the default dtype, and device helpers.
+"""Type aliases, the default dtype, device helpers, and the particle-axis
+record (`PerParticle`).
 
 Counterpart of `genjax_tpu/core/typing.py`. float32 is the default real
 type, as in JAX without x64. Python numbers stay Python numbers where a
@@ -9,6 +10,7 @@ that must be tensors are made on an explicit device.
 from typing import Any, TypeAlias
 
 import torch
+from torch._C import DisableTorchFunctionSubclass
 
 FloatArray: TypeAlias = float | torch.Tensor
 
@@ -49,12 +51,66 @@ def host_scalar(v: Any) -> float | None:
     return None
 
 
+class PerParticle(torch.Tensor):
+    """A tensor whose leading axis is the particle (or chain) axis.
+
+    The port never guesses from a size whether a value carries that axis:
+    it records it. Inside a body run with a particle count `n` by
+    `simulate` or `generate`, every value drawn with `n` is handed to the
+    body as a `PerParticle`, and PyTorch keeps the type on everything
+    computed from it, so a site knows which of its parameters are per
+    particle. Traces store plain tensors and keep the record beside them
+    (`Trace.batched_leaves`). A caller marks a per-particle argument or
+    choice value with `per_particle`; anything unmarked (an argument, a
+    constraint, a value computed only from them) is shared by every
+    particle and stored once."""
+
+
+def per_particle(x: torch.Tensor) -> torch.Tensor:
+    """Mark `x` as carrying the particle axis in front (a view, no copy).
+
+    >>> import torch
+    >>> from genjax_tpu_torch.core.typing import is_per_particle, per_particle
+    >>> x = torch.zeros(4, 3)
+    >>> is_per_particle(per_particle(x)), is_per_particle(x), is_per_particle(per_particle(x) + 1.0)
+    (True, False, True)
+    """
+    return x if isinstance(x, PerParticle) else x.as_subclass(PerParticle)
+
+
+def is_per_particle(x: Any) -> bool:
+    return isinstance(x, PerParticle)
+
+
+def plain(x: Any) -> Any:
+    """`x` with the `PerParticle` mark taken off (a view); other values
+    pass through."""
+    if not isinstance(x, PerParticle):
+        return x
+    with DisableTorchFunctionSubclass():
+        return x.as_subclass(torch.Tensor)
+
+
 def sample_shape(n: int | None, *params: Any) -> torch.Size:
     """The shape of one site's draw: the broadcast of its parameters'
-    shapes, widened by a leading particle axis of length `n` when given.
-    A scalar parameter and an `(n,)` particle column both broadcast."""
-    shapes = [p.shape for p in params if isinstance(p, torch.Tensor)]
-    base = torch.broadcast_shapes(*shapes) if shapes else torch.Size()
-    if n is None:
-        return base
-    return torch.broadcast_shapes((n,), base)
+    per-particle shapes, with the particle axis of length `n` prepended
+    when `n` is given. A `PerParticle` parameter contributes its shape
+    without the leading axis; any other parameter is shared.
+
+    >>> import torch
+    >>> from genjax_tpu_torch.core.typing import per_particle, sample_shape
+    >>> tuple(sample_shape(8, torch.zeros(3), 1.0)), tuple(sample_shape(8, per_particle(torch.zeros(8))))
+    ((8, 3), (8,))
+    """
+    shapes = [
+        p.shape[1:] if isinstance(p, PerParticle) else p.shape
+        for p in params
+        if isinstance(p, torch.Tensor)
+    ]
+    if all(s == shapes[0] for s in shapes[1:]):
+        # One shape, or equal ones (as every parameter but one a number is):
+        # no call to `broadcast_shapes`, whose Python costs about 15 us.
+        base = shapes[0] if shapes else torch.Size()
+    else:
+        base = torch.broadcast_shapes(*shapes)
+    return base if n is None else torch.Size((n, *base))

@@ -4,15 +4,24 @@ from genjax_tpu_torch.distributions.distribution import (
     ExactDensity,
     exact_density,
 )
-from genjax_tpu_torch.distributions.library import beta, flip, normal, uniform
+from genjax_tpu_torch.distributions.library import (
+    bernoulli,
+    beta,
+    flip,
+    mv_normal_diag,
+    normal,
+    uniform,
+)
 
 __all__ = [
     "Distribution",
     "DistributionTrace",
     "ExactDensity",
+    "bernoulli",
     "beta",
     "exact_density",
     "flip",
+    "mv_normal_diag",
     "normal",
     "uniform",
 ]

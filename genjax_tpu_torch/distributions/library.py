@@ -1,11 +1,14 @@
-"""The distributions of the particle path: `normal`, `uniform`, `beta`, `flip`.
+"""The distributions of the particle and MCMC paths: `normal`, `uniform`,
+`beta`, `flip`, `bernoulli` and `mv_normal_diag`.
 
-Counterpart of the same four in `genjax_tpu/distributions/library.py`,
-with its parameterizations and its support semantics: a value outside
-the support scores exactly `-inf` (`_guard_support`). Samplers draw from
-a `torch.Generator` on the generator's device; with a particle count `n`
-a site draws `broadcast_shapes((n,), parameter shapes)` values, so a
-literal parameter and an `(n,)` particle column both work.
+Counterpart of the same six in `genjax_tpu/distributions/library.py`,
+with their parameterizations and support semantics: a value outside the
+support scores exactly `-inf` (`_guard_support`). Samplers draw from a
+`torch.Generator` on the generator's device. Parameters may be scalars or
+tensors (a vector `loc` draws a vector). With a particle count `n` a site
+draws `(n, *per-particle shape)` values (`core.typing.sample_shape`): a
+parameter marked `PerParticle` brings its own particle axis, any other
+is shared.
 
 The other distributions of the JAX library come later.
 """
@@ -14,9 +17,11 @@ import math
 
 import torch
 
+from genjax_tpu_torch.core.gfi import GenerativeFunctionClosure
+from genjax_tpu_torch.core.pytree import Pytree
 from genjax_tpu_torch.core.typing import host_scalar, sample_shape
-from genjax_tpu_torch.distributions.distribution import exact_density
-from genjax_tpu_torch.distributions.mathx import betaln, log, xlog1py, xlogy
+from genjax_tpu_torch.distributions.distribution import ExactDensity, exact_density
+from genjax_tpu_torch.distributions.mathx import betaln, log, log1p, xlog1py, xlogy
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -133,4 +138,58 @@ def _flip_logpdf(v, p):
 flip = exact_density(_flip_sample, _flip_logpdf, "flip")
 
 
-__all__ = ["beta", "flip", "normal", "uniform"]
+# -- bernoulli -------------------------------------------------------------
+
+
+@Pytree.dataclass
+class Bernoulli(ExactDensity):
+    """Bernoulli over `{0, 1}` (int32 draws), parameterized by `logits=`
+    or `probs=`. The logits form scores with softplus, stable where the
+    sigmoid saturates in float32. A bare positional parameter is logits.
+
+    >>> import torch
+    >>> from genjax_tpu_torch.distributions.library import bernoulli
+    >>> v = torch.tensor([0, 1, 2])
+    >>> bernoulli.logpdf(v, logits=torch.tensor(0.0)).tolist()[2], round(float(bernoulli.logpdf(v[1], probs=0.25)), 4)
+    (-inf, -1.3863)
+    """
+
+    def __call__(self, *args, logits=None, probs=None) -> GenerativeFunctionClosure:
+        if args:
+            logits = args[0]
+        return GenerativeFunctionClosure(self, (logits, probs))
+
+    def sample(self, rng, logits=None, probs=None, n=None):
+        p = torch.sigmoid(logits) if probs is None else probs
+        return (_rand(rng, sample_shape(n, p)) < p).to(torch.int32)
+
+    def logpdf(self, v, logits=None, probs=None):
+        vf = torch.as_tensor(v).to(torch.float32)
+        if probs is None:
+            # (log p, log 1-p) = (-softplus(-l), -softplus(l))
+            log_p, log_1mp = -torch.nn.functional.softplus(-logits), -torch.nn.functional.softplus(logits)
+        else:
+            log_p, log_1mp = log(probs), log1p(-probs)
+        # Support {0, 1}: a fractional or out-of-range value scores -inf.
+        return torch.where((vf == 0.0) | (vf == 1.0), vf * log_p + (1.0 - vf) * log_1mp, -math.inf)
+
+
+bernoulli = Bernoulli()
+
+
+# -- mv_normal_diag ----------------------------------------------------------
+
+
+def _mv_normal_diag_sample(rng, loc, scale_diag, n=None):
+    eps = torch.randn(sample_shape(n, loc, scale_diag), generator=rng, device=rng.device)
+    return loc + scale_diag * eps
+
+
+def _mv_normal_diag_logpdf(v, loc, scale_diag):
+    return _normal_logpdf(v, loc, scale_diag).sum(-1)
+
+
+mv_normal_diag = exact_density(_mv_normal_diag_sample, _mv_normal_diag_logpdf, "mv_normal_diag")
+
+
+__all__ = ["bernoulli", "beta", "flip", "mv_normal_diag", "normal", "uniform"]

@@ -1,12 +1,20 @@
+from genjax_tpu_torch.inference.mcmc import mh, mh_chain, run_chains, share_chain_args
 from genjax_tpu_torch.inference.particle_filter import BootstrapFilter
+from genjax_tpu_torch.inference.requests import HMC, MALA
 from genjax_tpu_torch.inference.smc import ImportanceK, ParticleCollection, ess
 from genjax_tpu_torch.inference.sp import Algorithm, Target
 
 __all__ = [
+    "HMC",
+    "MALA",
     "Algorithm",
     "BootstrapFilter",
     "ImportanceK",
     "ParticleCollection",
     "Target",
     "ess",
+    "mh",
+    "mh_chain",
+    "run_chains",
+    "share_chain_args",
 ]

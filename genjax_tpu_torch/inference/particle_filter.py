@@ -1,10 +1,15 @@
 """Bootstrap particle filter for state-space models built from the GFI.
 
 Counterpart of `genjax_tpu/inference/particle_filter.py::BootstrapFilter`
-with systematic resampling. Each step runs the step model's `importance`
+with systematic resampling. Each step runs the step model's `generate`
 once over all K particles (a leading particle axis, not a loop), then the
 ESS gate, then systematic resampling and LML accumulation when the gate
 fires. The JAX `collect=` and `model_args=` hooks come later.
+
+JAX traces the step model once for every step (`lax.scan`); here the
+first step runs it with the state marked `per_particle`, and every later
+step reuses that trace's particle-axis record (`generate(..., like=)`),
+so the body runs on plain tensors.
 """
 
 import math
@@ -13,11 +18,16 @@ from typing import Any
 import torch
 
 from genjax_tpu_torch.core.choice_map import ChoiceMap
-from genjax_tpu_torch.core.gather import take_rows
 from genjax_tpu_torch.core.gfi import GenerativeFunction
-from genjax_tpu_torch.core.pytree import Pytree
+from genjax_tpu_torch.core.pytree import Pytree, tree_map
+from genjax_tpu_torch.core.typing import per_particle
 from genjax_tpu_torch.inference.smc import systematic_resample
 from genjax_tpu_torch.ops import logsumexp, logsumexp_ess
+
+
+def _take_rows(z, idx: torch.Tensor):
+    """The rows `idx` of every leaf of a per-particle state."""
+    return tree_map(lambda v: v.index_select(0, idx), z)
 
 
 @Pytree.dataclass
@@ -26,7 +36,8 @@ class BootstrapFilter(Pytree):
 
     `step_model(z_prev, t)` traces the new latent state (its return value)
     and the observation at `obs_addr`; `init_model()` traces the initial
-    state the same way.
+    state the same way. The state is per particle: every leaf of it
+    carries the particle axis and is resampled.
     """
 
     step_model: GenerativeFunction[Any]
@@ -58,9 +69,11 @@ class BootstrapFilter(Pytree):
         z = init_trs.get_retval()
         lml = torch.zeros((), device=lw.device)
         lse = None  # logsumexp(lw), once a step has reduced lw
+        trs = None  # the last step's trace, whose record the next step reuses
         for t in range(1, observations.shape[0]):
-            trs, ws = self.step_model.importance(
-                rng, ChoiceMap.kw(**{self.obs_addr: observations[t]}), (z, t), n
+            args = (tree_map(per_particle, z), t) if trs is None else (z, t)
+            trs, ws = self.step_model.generate(
+                rng, ChoiceMap.kw(**{self.obs_addr: observations[t]}), args, n, like=trs
             )
             z = trs.get_retval()
             lw = lw + ws
@@ -69,12 +82,12 @@ class BootstrapFilter(Pytree):
             # for the device, one synchronisation per step.
             if ess < self.ess_threshold * n:
                 lml = lml + lse - log_n
-                z = take_rows(z, systematic_resample(rng, lw, n, lse), n_rows=n)
+                z = _take_rows(z, systematic_resample(rng, lw, n, lse))
                 lw = torch.zeros_like(lw)
                 lse = log_n  # logsumexp of n zeros
         if lse is None:
             lse = logsumexp(lw)
         lml = lml + lse - log_n
         # One final resample so the returned states are equally weighted.
-        z_out = take_rows(z, systematic_resample(rng, lw, n, lse), n_rows=n)
+        z_out = _take_rows(z, systematic_resample(rng, lw, n, lse))
         return lml, z_out

@@ -8,22 +8,23 @@ Counterpart of part of `genjax_tpu/inference/smc.py`: `ess`,
 
 A `ParticleCollection` holds traces with a leading particle axis of
 length K on every per-particle leaf; model arguments and observations are
-stored once and shared. Every reduction over the K log weights goes
+stored once and shared. Which leaves are which is the trace's record
+(`Trace.batched_leaves`), which resampling and `get_particle` read. Every reduction over the K log weights goes
 through `ops.logsumexp` or `ops.logsumexp_ess`, which run the CUDA kernel
 on the device, and each is taken once: a caller that already holds
 `logsumexp(log_weights)` hands it to the resampler.
 """
 
 import math
-from typing import Any, Generic, TypeVar
+from typing import Generic, TypeVar
 
 import torch
 
 from genjax_tpu_torch.core.choice_map import ChoiceMap
 from genjax_tpu_torch.core.concepts import Score
-from genjax_tpu_torch.core.gather import take_rows
+from genjax_tpu_torch.core.gather import take_row, take_rows
 from genjax_tpu_torch.core.gfi import Trace
-from genjax_tpu_torch.core.pytree import Pytree, tree_map
+from genjax_tpu_torch.core.pytree import Pytree
 from genjax_tpu_torch.core.typing import FloatArray
 from genjax_tpu_torch.inference.sp import Algorithm, Target
 from genjax_tpu_torch.ops import logsumexp, logsumexp_ess
@@ -78,12 +79,6 @@ def systematic_resample(
     return cum_counts_to_ancestors(systematic_cum_counts(u0, log_weights, n, lse), n)
 
 
-def _select_row(v: Any, idx: torch.Tensor, n: int) -> Any:
-    if isinstance(v, torch.Tensor) and v.dim() >= 1 and v.shape[0] == n:
-        return v.index_select(0, idx.reshape(1)).squeeze(0)
-    return v
-
-
 @Pytree.dataclass
 class ParticleCollection(Generic[R], Pytree):
     """A weighted collection of particles (traces with a leading particle
@@ -98,9 +93,8 @@ class ParticleCollection(Generic[R], Pytree):
     def get_particle(self, idx: int | torch.Tensor) -> Trace[R]:
         """The trace of particle `idx` (a Python int or a 0-d index tensor,
         which stays on the device). Shared leaves belong to every particle."""
-        n = self.log_weights.shape[0]
         idx = torch.as_tensor(idx, device=self.log_weights.device)
-        return tree_map(lambda v: _select_row(v, idx, n), self.particles)
+        return take_row(self.particles, idx)
 
     def get_log_weights(self) -> torch.Tensor:
         return self.log_weights
@@ -128,7 +122,7 @@ class ParticleCollection(Generic[R], Pytree):
         anc = systematic_resample(rng, self.log_weights, n, lse)
         avg_lw = lse - math.log(n)
         return ParticleCollection(
-            take_rows(self.particles, anc, n_rows=n),
+            take_rows(self.particles, anc),
             avg_lw.expand(n).contiguous(),
         )
 

@@ -2,26 +2,39 @@
 
 Counterpart of `genjax_tpu/lang/static.py`: `gen`,
 `StaticGenerativeFunction`, `StaticTrace`, `AddressReuse`,
-`MissingAddress`, and the simulate / assess / generate handlers.
+`MissingAddress`, and the simulate / assess / generate / update /
+regenerate handlers, with `project` and `edit`.
 
 Every GFI method runs the model source directly, once, with a handler
 installed (see `lang/interop.py`). The sites draw from the method's
 `torch.Generator` in program order (JAX folds a per-site counter into its
 key instead). With a particle count `n`, the body runs once on tensors
-with a leading particle axis: no loop over particles.
+with a leading particle axis: no loop over particles. `simulate` and
+`generate` hand the body every per-particle value as a `PerParticle`
+tensor, so that each site knows which of its parameters carry the axis,
+and record which leaves of the arguments and the return value carry it.
+The edits keep the old trace's record and hand the body plain tensors.
+So does `generate` given `like=`, a trace of an earlier call with the same
+record: a filter's step model, like the body of JAX's `scan`, is traced
+with the marks once and then reuses that record at every later step.
 
-Edits, and the site-graph analysis that makes them incremental, come
-later.
+The edits are dense: every site is visited and re-scored. The site-graph
+analysis that makes them incremental (`_EditPlan` in JAX) comes later.
 """
 
 from typing import Any, Callable, Generic, TypeVar
 
 import torch
+import torch.utils._pytree as pytree
 
-from genjax_tpu_torch.core.choice_map import ChoiceMap
-from genjax_tpu_torch.core.concepts import Score, Weight
-from genjax_tpu_torch.core.gfi import GenerativeFunction, Trace
-from genjax_tpu_torch.core.pytree import Pytree
+from genjax_tpu_torch.core.choice_map import ChoiceMap, Selection
+from genjax_tpu_torch.core.concepts import NotSupportedEditRequest, Score, Weight
+from genjax_tpu_torch.core.diff import Diff
+from genjax_tpu_torch.core.gfi import GenerativeFunction, Trace, Update
+from genjax_tpu_torch.core.pytree import Pytree, n_leaves
+from genjax_tpu_torch.core.requests import EmptyRequest, Regenerate
+from genjax_tpu_torch.core.typing import device_of, is_per_particle, per_particle, plain
+from genjax_tpu_torch.distributions.distribution import DistributionTrace
 from genjax_tpu_torch.lang.interop import TraceHandler, handler_context
 
 R = TypeVar("R")
@@ -37,14 +50,38 @@ class MissingAddress(Exception):
     addresses."""
 
 
+def _flat(args: tuple) -> bool:
+    """Whether every element of `args` is a pytree leaf."""
+    return all(a is None or isinstance(a, (torch.Tensor, float, int)) for a in args)
+
+
+def _recorded(tree) -> tuple[Any, tuple]:
+    """`tree` with its `PerParticle` marks taken off, and which of its
+    leaves carried one."""
+    if isinstance(tree, torch.Tensor):
+        return plain(tree), (is_per_particle(tree),)
+    if isinstance(tree, tuple) and _flat(tree):
+        record = tuple(is_per_particle(leaf) for leaf in tree)
+        return (tuple(plain(leaf) for leaf in tree) if any(record) else tree), record
+    leaves, spec = pytree.tree_flatten(tree)
+    record = tuple(is_per_particle(leaf) for leaf in leaves)
+    if any(record):
+        tree = pytree.tree_unflatten([plain(leaf) for leaf in leaves], spec)
+    return tree, record
+
+
 @Pytree.dataclass
 class StaticTrace(Generic[R], Trace[R]):
-    """Trace of a `@gen` program: a dict of per-address subtraces."""
+    """Trace of a `@gen` program: a dict of per-address subtraces, and the
+    record of which leaves of the arguments and of the return value carry
+    the particle axis."""
 
     gen_fn: "StaticGenerativeFunction[R]"
     args: tuple
     retval: R
     subtraces: dict
+    args_batched: tuple = Pytree.static(default=())
+    retval_batched: tuple = Pytree.static(default=())
 
     def get_args(self) -> tuple:
         return self.args
@@ -67,6 +104,24 @@ class StaticTrace(Generic[R], Trace[R]):
             total = total + s
         return total
 
+    def args_record(self) -> list[bool]:
+        return list(self.args_batched) or [False] * n_leaves(self.args)
+
+    def batched_leaves(self) -> list[bool]:
+        retval = list(self.retval_batched) or [False] * n_leaves(self.retval)
+        bits = [False] * n_leaves(self.gen_fn) + self.args_record() + retval
+        for tr in self.subtraces.values():
+            bits += tr.batched_leaves()
+        return bits
+
+    def as_single(self) -> "StaticTrace[R]":
+        return StaticTrace(
+            self.gen_fn,
+            self.args,
+            self.retval,
+            {a: tr.as_single() for a, tr in self.subtraces.items()},
+        )
+
 
 ############
 # Handlers #
@@ -74,11 +129,14 @@ class StaticTrace(Generic[R], Trace[R]):
 
 
 class StaticLangHandler(TraceHandler):
-    """Base handler: records subtraces and rejects address reuse."""
+    """Base handler: records subtraces and rejects address reuse. With
+    `mark`, a per-particle return value of a site reaches the body as a
+    `PerParticle` tensor."""
 
-    def __init__(self, rng: torch.Generator | None, n: int | None):
+    def __init__(self, rng: torch.Generator | None, n: int | None, mark: bool = False):
         self.rng = rng
         self.n = n
+        self.mark = mark and n is not None
         self.subtraces: dict = {}
 
     def record(self, addr, subtrace) -> None:
@@ -86,17 +144,34 @@ class StaticLangHandler(TraceHandler):
             raise AddressReuse(addr)
         self.subtraces[addr] = subtrace
 
+    def handed(self, tr: Trace) -> Any:
+        """What the body sees of a site: its return value, marked where
+        the record says it carries the particle axis."""
+        v = tr.get_retval()
+        if not self.mark:
+            return v
+        if isinstance(tr, DistributionTrace):
+            return per_particle(v) if tr.batched else v
+        if isinstance(tr, StaticTrace) and tr.retval_batched:
+            leaves, spec = pytree.tree_flatten(v)
+            marked = [per_particle(x) if b else x for x, b in zip(leaves, tr.retval_batched)]
+            return pytree.tree_unflatten(marked, spec)
+        return v
+
 
 class SimulateHandler(StaticLangHandler):
+    def __init__(self, rng, n):
+        super().__init__(rng, n, mark=True)
+
     def handle_trace(self, addr, gen_fn, args):
         tr = gen_fn.simulate(self.rng, args, self.n)
         self.record(addr, tr)
-        return tr.get_retval()
+        return self.handed(tr)
 
 
 class AssessHandler(StaticLangHandler):
-    def __init__(self, sample: ChoiceMap):
-        super().__init__(None, None)
+    def __init__(self, sample: ChoiceMap, n: int | None):
+        super().__init__(None, n)
         self.sample = sample
         self.score = None
 
@@ -104,24 +179,77 @@ class AssessHandler(StaticLangHandler):
         submap = self.sample(addr)
         if submap.static_is_empty():
             raise MissingAddress(addr)
-        score, v = gen_fn.assess(submap, args)
+        score, v = gen_fn.assess(submap, args, self.n)
         self.score = score if self.score is None else self.score + score
         return v
 
 
 class GenerateHandler(StaticLangHandler):
-    def __init__(self, rng: torch.Generator, constraint: ChoiceMap, n: int | None):
-        super().__init__(rng, n)
+    """With `like`, the body sees plain tensors, and each site generates
+    like the same site of `like`."""
+
+    def __init__(self, rng: torch.Generator, constraint: ChoiceMap, n: int | None, like=None):
+        super().__init__(rng, n, mark=like is None)
         self.constraint = constraint
+        self.like = like
         # With a particle axis the weight is (n,) even where every site's
         # weight is shared (unbatched) or zero.
         self.weight = torch.zeros(() if n is None else (n,), device=rng.device)
 
     def handle_trace(self, addr, gen_fn, args):
-        tr, w = gen_fn.generate(self.rng, self.constraint(addr), args, self.n)
+        like = None
+        if self.like is not None:
+            if addr not in self.like.subtraces:
+                raise MissingAddress(f"{addr!r}: a site that the trace given as `like` does not hold")
+            like = self.like.subtraces[addr]
+        tr, w = gen_fn.generate(self.rng, self.constraint(addr), args, self.n, like)
         self.weight = self.weight + w
         self.record(addr, tr)
+        return self.handed(tr)
+
+
+class EditHandler(StaticLangHandler):
+    """Base of the dense edit handlers: each site of the previous trace is
+    edited with the site's part of the request and re-scored; the weights
+    add up, and the discarded choices make the backward `Update`."""
+
+    def __init__(self, rng: torch.Generator, previous: StaticTrace, n: int | None):
+        super().__init__(rng, n)
+        self.previous = previous
+        self.weight = torch.zeros((), device=rng.device)
+        self.discards: dict = {}
+
+    def site_request(self, addr):
+        raise NotImplementedError
+
+    def handle_trace(self, addr, gen_fn, args):
+        if addr not in self.previous.subtraces:
+            raise MissingAddress(addr)
+        tr, w, _, bwd = gen_fn.edit(
+            self.rng, self.previous.subtraces[addr], self.site_request(addr), Diff.unknown_change(args), self.n
+        )
+        self.weight = self.weight + w
+        self.discards[addr] = bwd.constraint
+        self.record(addr, tr)
         return tr.get_retval()
+
+
+class UpdateHandler(EditHandler):
+    def __init__(self, rng, previous, constraint: ChoiceMap):
+        super().__init__(rng, previous, None)
+        self.constraint = constraint
+
+    def site_request(self, addr):
+        return Update(self.constraint(addr))
+
+
+class RegenerateHandler(EditHandler):
+    def __init__(self, rng, previous, selection: Selection, n: int | None):
+        super().__init__(rng, previous, n)
+        self.selection = selection
+
+    def site_request(self, addr):
+        return Regenerate(self.selection(addr))
 
 
 #######################
@@ -136,24 +264,82 @@ class StaticGenerativeFunction(Generic[R], GenerativeFunction[R]):
 
     source: Callable[..., Any] = Pytree.static()
 
+    def _trace(self, args, retval, subtraces) -> StaticTrace[R]:
+        args, args_batched = _recorded(args)
+        retval, retval_batched = _recorded(retval)
+        return StaticTrace(self, args, retval, subtraces, args_batched, retval_batched)
+
     def simulate(self, rng, args, n=None) -> StaticTrace[R]:
         handler = SimulateHandler(rng, n)
         with handler_context(handler):
             retval = self.source(*args)
-        return StaticTrace(self, args, retval, handler.subtraces)
+        return self._trace(args, retval, handler.subtraces)
 
-    def assess(self, sample, args) -> tuple[Score, R]:
-        handler = AssessHandler(sample)
+    def assess(self, sample, args, n=None) -> tuple[Score, R]:
+        handler = AssessHandler(sample, n)
         with handler_context(handler):
             retval = self.source(*args)
-        score = torch.zeros(()) if handler.score is None else handler.score
+        score = handler.score
+        if score is None:
+            score = torch.zeros((), device=device_of(*pytree.tree_leaves(args)))
+        if n is not None and score.dim() == 0:
+            score = score.expand(n)
         return score, retval
 
-    def generate(self, rng, constraint, args, n=None) -> tuple[StaticTrace[R], Weight]:
-        handler = GenerateHandler(rng, constraint, n)
+    def generate(self, rng, constraint, args, n=None, like=None) -> tuple[StaticTrace[R], Weight]:
+        """With `like`, the body runs on plain tensors (marks on `args` are
+        taken off) and each site generates like `like`'s."""
+        if like is not None:
+            args = _recorded(args)[0]
+        handler = GenerateHandler(rng, constraint, n, like)
         with handler_context(handler):
             retval = self.source(*args)
-        return StaticTrace(self, args, retval, handler.subtraces), handler.weight
+        if like is None:
+            return self._trace(args, retval, handler.subtraces), handler.weight
+        new = StaticTrace(self, args, retval, handler.subtraces, like.args_batched, like.retval_batched)
+        return new, handler.weight
+
+    def project(self, rng, trace: StaticTrace[R], selection: Selection) -> Weight:
+        weight = torch.zeros((), device=rng.device)
+        for addr, subtrace in trace.subtraces.items():
+            weight = weight + subtrace.project(rng, selection(addr))
+        return weight
+
+    # -- edits -------------------------------------------------------------------
+
+    def _edited(self, trace: StaticTrace[R], args, handler: EditHandler):
+        with handler_context(handler):
+            retval = self.source(*args)
+        # An edit keeps the particle-axis record of the trace it edits.
+        new = StaticTrace(
+            self, args, _recorded(retval)[0], handler.subtraces, trace.args_batched, trace.retval_batched
+        )
+        bwd = Update(ChoiceMap.d(handler.discards))
+        return new, handler.weight, Diff.unknown_change(new.retval), bwd
+
+    def edit_update(self, rng, trace, constraint: ChoiceMap, argdiffs):
+        if constraint.static_is_empty() and Diff.static_check_no_change(argdiffs):
+            weight = torch.zeros((), device=rng.device)
+            return trace, weight, Diff.no_change(trace.get_retval()), Update(ChoiceMap.empty())
+        handler = UpdateHandler(rng, trace, constraint)
+        return self._edited(trace, Diff.tree_primal(argdiffs), handler)
+
+    def edit_regenerate(self, rng, trace, selection: Selection, argdiffs):
+        handler = RegenerateHandler(rng, trace, selection, trace.particle_count())
+        return self._edited(trace, Diff.tree_primal(argdiffs), handler)
+
+    def edit(self, rng, trace, edit_request, argdiffs, n=None):
+        """`n` (the particle count of an enclosing trace) is read from this
+        trace's own record instead."""
+        match edit_request:
+            case Update(constraint):
+                return self.edit_update(rng, trace, constraint, argdiffs)
+            case Regenerate(selection):
+                return self.edit_regenerate(rng, trace, selection, argdiffs)
+            case EmptyRequest():
+                return edit_request.edit(rng, trace, argdiffs)
+            case _:
+                raise NotSupportedEditRequest(edit_request)
 
 
 def gen(f: Callable[..., Any]) -> StaticGenerativeFunction[Any]:

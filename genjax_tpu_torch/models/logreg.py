@@ -1,0 +1,83 @@
+"""Bayesian logistic regression: HMC and MALA over thousands of chains.
+
+Counterpart of `genjax_tpu/models/logreg.py`. JAX writes one chain's
+`X @ w` and lets `vmap` batch it; here the body runs once on the chain
+batch, so it writes `w @ X.mT`, which is right for one chain's `(D,)` and
+for C chains' `(C, D)`: one shared-operand `(C, D) @ (D, N)` matmul per
+density pass.
+"""
+
+import dataclasses
+
+import torch
+
+from genjax_tpu_torch.core.choice_map import ChoiceMap, Selection
+from genjax_tpu_torch.distributions.library import bernoulli, mv_normal_diag
+from genjax_tpu_torch.inference.mcmc import run_chains, share_chain_args
+from genjax_tpu_torch.inference.requests import HMC, MALA
+from genjax_tpu_torch.lang.static import gen
+
+
+@gen
+def logistic_regression(X):
+    d = X.shape[-1]
+    w = mv_normal_diag(X.new_zeros(d), X.new_ones(d)) @ "w"
+    logits = w @ X.mT
+    # The logits form scores with softplus, stable where the sigmoid
+    # saturates in float32 (and would give NaN HMC gradients).
+    _ = bernoulli(logits=logits) @ "ys"
+    return logits
+
+
+def simulate_logreg_data(rng: torch.Generator, n: int, d: int):
+    """(X, ys, w_true) on the generator's device: `X` is (n, d) standard
+    normal, `ys` int32 Bernoulli(sigmoid(X @ w_true))."""
+    X = torch.randn(n, d, generator=rng, device=rng.device)
+    w_true = torch.randn(d, generator=rng, device=rng.device)
+    u = torch.rand(n, generator=rng, device=rng.device)
+    ys = (u < torch.sigmoid(X @ w_true)).to(torch.int32)
+    return X, ys, w_true
+
+
+@dataclasses.dataclass(frozen=True)
+class BenchConfig:
+    """HMC as `bench.py:605-644` runs it (BASELINE config 4), and MALA at
+    the same width: the configuration of `chip_smoke.py` and
+    `profiling.py`."""
+
+    n_chains: int = 8192
+    n_data: int = 256
+    dim: int = 16
+    eps: float = 0.02
+    L: int = 5
+    n_steps: int = 10
+    mala_eps: float = 0.01
+    data_seed: int = 3
+
+    def data(self, device: torch.device | str):
+        """(X, ys) drawn on the CPU from `data_seed`, then moved to
+        `device`, so that every device sees the same data."""
+        X, ys, _ = simulate_logreg_data(torch.Generator().manual_seed(self.data_seed), self.n_data, self.dim)
+        return X.to(device), ys.to(device)
+
+
+def init_chains(rng: torch.Generator, X, ys, n_chains: int):
+    """`n_chains` chains drawn from the prior, `ys` observed: one trace
+    with the chain axis on `w` and one shared copy of `X` and `ys`."""
+    trs, _ = logistic_regression.importance(rng, ChoiceMap.kw(ys=ys), (X,), n=n_chains)
+    return share_chain_args(trs, (X,))
+
+
+def run_hmc_chains(rng: torch.Generator, X, ys, n_chains: int = 8192, n_steps: int = 100, eps: float = 0.05, L: int = 10):
+    """HMC over `n_chains` chains: returns (final `w`, `(C, n_steps)`
+    accept flags)."""
+    trs = init_chains(rng, X, ys, n_chains)
+    finals, accs = run_chains(rng, trs, HMC(Selection.at["w"], eps, L=L), n_steps)
+    return finals.get_choices()["w"], accs
+
+
+def run_mala_chains(rng: torch.Generator, X, ys, n_chains: int = 8192, n_steps: int = 100, eps: float = 0.01):
+    """MALA over `n_chains` chains: returns (final `w`, accept flags)."""
+    trs = init_chains(rng, X, ys, n_chains)
+    finals, accs = run_chains(rng, trs, MALA(Selection.at["w"], eps), n_steps)
+    return finals.get_choices()["w"], accs

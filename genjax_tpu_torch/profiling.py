@@ -1,4 +1,4 @@
-"""Where the time goes on the particle path, on one CUDA card.
+"""Where the time goes on the particle and MCMC paths, on one CUDA card.
 
 Traces each configuration that `chip_smoke.py` runs with `torch.profiler`
 (CUPTI device intervals) and prints, for each:
@@ -9,7 +9,8 @@ Traces each configuration that `chip_smoke.py` runs with `torch.profiler`
   fills) of one profiled run;
 - idle share: `1 - busy / wall`;
 - device items and host kernel-launch calls per step (per trial for SIR,
-  per filter step for the filters), and the largest device items;
+  per filter step for the filters, per leapfrog step for HMC, per MALA
+  sweep for polyreg), and the largest device items;
 - K1: the device kernels of the logsumexp kernel in the trace beside the
   launches its wrappers counted in the same run (one kernel per launch),
   and how many device items come from `torch.softmax`.
@@ -146,9 +147,14 @@ def configurations():
         col = alg.run_smc(rng)
         return col.get_log_marginal_likelihood_estimate(), col.sample_particle(rng)
 
+    from genjax_tpu_torch.models import logreg, polyreg
+
     small_filter, _ = entry("cuda")
     _, ys = simulate_ssm_data(torch.Generator().manual_seed(1), BIG_FILTER_STEPS)
     ys = ys.to("cuda")
+    hmc, pr = logreg.BenchConfig(), polyreg.BenchConfig()
+    X, yl = hmc.data("cuda")
+    xs, yp = pr.data("cuda")
     return [
         (f"SIR beta-bernoulli K={SIR_PARTICLES}, one trial (importance, LML, one draw)", 1, sir_trial),
         (f"filter K={N_PARTICLES} T={N_STEPS}", N_STEPS, lambda: small_filter(rng)),
@@ -156,6 +162,19 @@ def configurations():
             f"filter K={BIG_FILTER_PARTICLES} T={BIG_FILTER_STEPS}",
             BIG_FILTER_STEPS,
             lambda: run_bootstrap_filter(rng, ys, n_particles=BIG_FILTER_PARTICLES),
+        ),
+        (
+            f"logreg HMC C={hmc.n_chains} N={hmc.n_data} D={hmc.dim} L={hmc.L} S={hmc.n_steps}, one run "
+            "(chain init, S MH steps); steps are leapfrog steps",
+            hmc.n_steps * hmc.L,
+            lambda: logreg.run_hmc_chains(rng, X, yl, n_chains=hmc.n_chains, n_steps=hmc.n_steps, eps=hmc.eps, L=hmc.L),
+        ),
+        (
+            f"polyreg IS K={pr.n_particles} + MALA x{pr.n_sweeps}, one run; steps are sweeps",
+            pr.n_sweeps,
+            lambda: polyreg.run_is_mh(
+                rng, xs, yp, pr.n_particles, pr.n_sweeps, obs_noise=pr.obs_noise, step_size=pr.step_size
+            ),
         ),
     ]
 

@@ -1,5 +1,6 @@
 """The CUDA logsumexp kernel (both entry points) against its plain PyTorch
-versions, on the card.
+versions, on the card; and the MCMC path on the card: `run_chains` with no
+device synchronisation, and HMC's result against the CPU's.
 
 These tests need a CUDA device (the kernel has no CPU mode) and skip
 without one. On a machine with the card and without JAX, run them with
@@ -176,3 +177,45 @@ def test_dispatch_launches_the_kernel_and_counts(cuda):
     assert lse.device.type == ess.device.type == "cuda" and lse.shape == ess.shape == ()
     with pytest.raises(ValueError, match="contiguous"):
         fused_logsumexp(torch.zeros(8, 2, device=cuda)[:, 0])
+
+
+def _logreg_chains(device, n_chains: int, seed: int = 0):
+    """Logistic-regression chains at the bench's data size (N=256, D=16),
+    the data made on the CPU so that every device sees the same."""
+    from genjax_tpu_torch.models.logreg import init_chains, simulate_logreg_data
+
+    X, ys, _ = simulate_logreg_data(torch.Generator().manual_seed(3), 256, 16)
+    rng = torch.Generator(device=device).manual_seed(seed)
+    return rng, init_chains(rng, X.to(device), ys.to(device), n_chains)
+
+
+def test_run_chains_makes_no_device_sync(cuda):
+    import genjax_tpu_torch as gx
+
+    rng, chains = _logreg_chains(cuda, 1024)
+    for request in (gx.HMC(gx.Selection.at["w"], 0.02, L=5, jitter=0.2), gx.MALA(gx.Selection.at["w"], 0.01)):
+        gx.run_chains(rng, chains, request, 2)  # warm up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # a synchronising call raises
+        try:
+            final, accepted = gx.run_chains(rng, chains, request, 10)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert accepted.shape == (1024, 10) and final.get_choices()["w"].device.type == "cuda"
+
+
+def test_hmc_on_the_card_matches_the_cpu(cuda):
+    # Chains from the prior, 10 HMC steps at the bench's step size on both
+    # devices: the per-dimension means of the final w agree within 5
+    # combined standard errors (chains are independent draws).
+    import genjax_tpu_torch as gx
+
+    ws = []
+    for device in (cuda, torch.device("cpu")):
+        rng, chains = _logreg_chains(device, 4096, seed=1 if device.type == "cpu" else 2)
+        final, accepted = gx.run_chains(rng, chains, gx.HMC(gx.Selection.at["w"], 0.02, L=5), 10)
+        assert 0.0 < float(accepted.float().mean()) <= 1.0
+        ws.append(final.get_choices()["w"].double().cpu())
+    a, b = ws
+    se = (a.var(0) / a.shape[0] + b.var(0) / b.shape[0]).sqrt()
+    assert bool(((a.mean(0) - b.mean(0)).abs() < 5 * se).all()), (a.mean(0), b.mean(0), se)

@@ -18,6 +18,7 @@ import genjax_tpu as jgx
 import genjax_tpu_torch as tgx
 from genjax_tpu.models.beta_bernoulli import beta_bernoulli as jax_beta_bernoulli
 from genjax_tpu.models.ssm import make_ssm_models as jax_make_ssm_models
+from genjax_tpu_torch.core.typing import per_particle
 from genjax_tpu_torch.models.beta_bernoulli import beta_bernoulli
 from genjax_tpu_torch.models.ssm import make_ssm_models
 
@@ -63,7 +64,12 @@ def _jax_batched(method, jax_model, choices, args):
 
 
 def _torch_args(args):
-    return tuple(torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in args)
+    # The numpy arguments are the per-particle ones (JAX vmaps them).
+    return tuple(per_particle(torch.from_numpy(a)) if isinstance(a, np.ndarray) else a for a in args)
+
+
+def _per_particle_choices(choices):
+    return tgx.ChoiceMap.d({k: per_particle(torch.from_numpy(v)) for k, v in choices.items()})
 
 
 def _close(got, ref):
@@ -77,7 +83,7 @@ def _close(got, ref):
 def test_fully_constrained_importance_matches_vmapped_jax(model):
     choices, args, jax_model, torch_model = MODELS[model]()
     ref_score, ref_w = _jax_batched("importance", jax_model, choices, args)
-    chm = tgx.ChoiceMap.d({k: torch.from_numpy(v) for k, v in choices.items()})
+    chm = _per_particle_choices(choices)
     tr, w = torch_model.importance(torch.Generator().manual_seed(0), chm, _torch_args(args), n=K)
     _close(w.numpy(), ref_w)
     _close(tr.get_score().numpy(), ref_score)
@@ -90,8 +96,7 @@ def test_fully_constrained_importance_matches_vmapped_jax(model):
 def test_assess_matches_vmapped_jax(model):
     choices, args, jax_model, torch_model = MODELS[model]()
     ref = _jax_batched("assess", jax_model, choices, args)
-    chm = tgx.ChoiceMap.d({k: torch.from_numpy(v) for k, v in choices.items()})
-    score, _ = torch_model.assess(chm, _torch_args(args))
+    score, _ = torch_model.assess(_per_particle_choices(choices), _torch_args(args))
     _close(score.numpy(), ref)
 
 
@@ -100,7 +105,7 @@ def test_batched_importance_samples_latents_and_weights_by_the_observation():
     # stored once, and the weight is log N(y; z, 0.4) particle by particle.
     _, step = make_ssm_models()
     z_prev = torch.from_numpy(np.random.default_rng(2).standard_normal(K).astype(np.float32))
-    tr, w = step.importance(torch.Generator().manual_seed(5), tgx.ChoiceMap.kw(y=0.7), (z_prev, 1), n=K)
+    tr, w = step.importance(torch.Generator().manual_seed(5), tgx.ChoiceMap.kw(y=0.7), (per_particle(z_prev), 1), n=K)
     z = tr.get_choices()["z"]
     assert z.shape == (K,) and tr.get_choices()["y"].shape == ()
     torch.testing.assert_close(w, tgx.normal.logpdf(torch.tensor(0.7), z, 0.4))

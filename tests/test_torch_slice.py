@@ -110,9 +110,10 @@ def test_particle_collection_carried_from_jax_keeps_its_lml_and_scores():
     col = convert.particle_collection(
         beta_bernoulli,
         (2.0, 2.0),
-        {"p": np.asarray(choices["p"]), "v": np.asarray(choices["v"])},
+        {"p": np.asarray(choices["p"])},
         np.asarray(jcol.get_log_weights()),
         device="cpu",
+        observations={"v": np.asarray(choices["v"])},
     )
     ref_lml = float(jcol.get_log_marginal_likelihood_estimate())
     assert abs(float(col.get_log_marginal_likelihood_estimate()) - ref_lml) <= 1e-5

@@ -16,6 +16,7 @@ from genjax_tpu.inference.smc import ParticleCollection as JaxParticleCollection
 from genjax_tpu.inference.smc import _blocks_to_ancestors, systematic_cum_counts as jax_cum_counts
 from genjax_tpu_torch.core.choice_map import ChoiceMap
 from genjax_tpu_torch.core.gather import take_rows
+from genjax_tpu_torch.core.typing import per_particle
 from genjax_tpu_torch.inference.smc import (
     ParticleCollection,
     cum_counts_to_ancestors,
@@ -103,14 +104,18 @@ def test_row_copy_is_bit_exact_against_jax_take_rows():
         jax.tree_util.tree_map(jnp.asarray, tree), _blocks_to_ancestors(cum, K), n_rows=K
     )
     anc = cum_counts_to_ancestors(torch.from_numpy(np.asarray(cum).astype(np.int64)), K)
-    got = take_rows(jax.tree_util.tree_map(torch.from_numpy, tree), anc, n_rows=K)
+    # The same leaves as a choice map, whose record says that every leaf
+    # but the observation carries the particle axis.
+    chm = ChoiceMap.d(
+        jax.tree_util.tree_map(lambda v: per_particle(torch.from_numpy(v)), {k: v for k, v in tree.items() if k != "obs"})
+        | {"obs": torch.from_numpy(tree["obs"])}
+    )
+    got = take_rows(chm, anc)
     for path, ref_leaf in jax.tree_util.tree_leaves_with_path(ref):
-        got_leaf = got
-        for k in path:
-            got_leaf = got_leaf[k.key]
+        got_leaf = got[tuple(k.key for k in path)]
         assert got_leaf.numpy().dtype == np.asarray(ref_leaf).dtype
         np.testing.assert_array_equal(got_leaf.numpy(), np.asarray(ref_leaf))
-    assert got["obs"] is not None and got["obs"].shape == (5,)
+    assert got["obs"] is chm["obs"]
 
 
 def test_row_copy_of_a_trace_keeps_shared_leaves():
@@ -118,7 +123,7 @@ def test_row_copy_of_a_trace_keeps_shared_leaves():
         torch.Generator().manual_seed(0), ChoiceMap.d({"v": True}), (2.0, 2.0), n=64
     )
     idx = torch.from_numpy(np.random.default_rng(0).integers(0, 64, 64))
-    out = take_rows(tr, idx, n_rows=64)
+    out = take_rows(tr, idx)  # the trace's own record
     np.testing.assert_array_equal(out.get_choices()["p"].numpy(), tr.get_choices()["p"].numpy()[idx.numpy()])
     assert out.get_choices()["v"].shape == () and out.get_args() == (2.0, 2.0)
 
@@ -154,7 +159,7 @@ def test_lml_and_ess_match_jax(case):
 
 def test_resample_keeps_the_lml_and_equalizes_weights():
     lw = torch.from_numpy(_log_weights(13, 2.0))
-    col = ParticleCollection({"x": torch.arange(K, dtype=torch.float32)}, lw)
+    col = ParticleCollection(ChoiceMap.kw(x=per_particle(torch.arange(K, dtype=torch.float32))), lw)
     new = col.resample(torch.Generator().manual_seed(0))
     torch.testing.assert_close(
         new.get_log_marginal_likelihood_estimate(), col.get_log_marginal_likelihood_estimate()
@@ -165,7 +170,7 @@ def test_resample_keeps_the_lml_and_equalizes_weights():
 
 def test_sample_particle_draws_in_proportion_to_weight():
     w = np.array([0.1, 0.2, 0.3, 0.4])
-    col = ParticleCollection({"i": torch.arange(4)}, torch.log(torch.tensor(w, dtype=torch.float32)))
+    col = ParticleCollection(ChoiceMap.kw(i=per_particle(torch.arange(4))), torch.log(torch.tensor(w, dtype=torch.float32)))
     rng = torch.Generator().manual_seed(0)
     n = 8000
     draws = np.array([int(col.sample_particle(rng)["i"]) for _ in range(n)])
