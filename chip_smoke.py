@@ -14,8 +14,20 @@ device synchronisations, and timed beside a hand-written PyTorch HMC of
 the same math), MALA at C=8192 (timed), and polynomial-regression IS +
 MALA at K=8192 particles over 64 points with 20 sweeps, whose LML and
 resample each launch the logsumexp kernel once (the kernel also held
-against its plain twin on that run's log weights). Every phase raises on
-failure; nothing is caught.
+against its plain twin on that run's log weights). Then the combinator
+path: the 64-state HMM as a `scan` program, unfolded over T=50 steps for
+K=1,000,000 particles with every observation constrained (timed, profiled,
+0 device synchronisations per step, 1 kernel launch for the LML, the
+kernel held against its plain twin on the run's own weights), its `assess`
+of 4,096 exact posterior paths held against the closed-form joint and the
+CPU, its LML at T=8 held against the forward algorithm, and a single-step
+`IndexRequest` edit at C=8192 chains held against the dense re-scan for
+the same draws; and logistic-regression HMC at C=8192 with the likelihood
+as a `vmap` over the 256 data points, held against the vector-site model
+(same scores, same final `w` within error, 0 synchronisations per MH step,
+timed side by side); and `repeat` at K=8192, whose trace must lie on the
+card whole and whose one-lane weights are held against the closed form.
+Every phase raises on failure; nothing is caught.
 
 Run from the repository root, with one CUDA card visible:
 
@@ -62,6 +74,13 @@ OUTPUTS = {"logsumexp": 1, "logsumexp_ess": 2}
 HMC_RUNS = 7
 MALA_RUNS = 5
 POLYREG_RUNS = 8
+# The combinator path (`models/hmm.py::BenchConfig`, `models/logreg.py::BenchConfig`).
+HMM_RUNS = 5
+HMM_PATHS = 4_096
+HMM_ORACLE_STEPS = 8
+HMM_ORACLE_RUNS = 10
+HMM_EDIT_CHAINS = 8_192
+VMAP_HMC_RUNS = 5
 
 
 def check(ok: bool, what: str) -> None:
@@ -566,6 +585,233 @@ def phase_polyreg(gx, ops, card: str) -> None:
           f"{POLYREG_RUNS}: {', '.join(f'{t:.2f}' for t in times)}), {moves / (ms * 1e-3):.4g} rejuvenation moves/s")
 
 
+def relative_error(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest |got - ref| / max(1, |ref|)."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+
+
+def phase_hmm_scan(gx, ops, card: str) -> None:
+    """The HMM as a `scan` program: the unfold at K=1M, exactness against
+    the closed form, the CPU and the forward algorithm, K1 on the run's
+    weights, and the single-step edit against the dense re-scan."""
+    from genjax_tpu_torch import profiling
+    from genjax_tpu_torch.distributions.discrete_hmm import forward_filtering_backward_sampling, path_joint_logpdf
+    from genjax_tpu_torch.inference.exact_testbed import build_hmm_chain_model
+    from genjax_tpu_torch.models.hmm import BenchConfig, exact_log_marginal, run_hmm_importance
+
+    cfg = BenchConfig()
+    K, T, init = cfg.n_particles, cfg.T, cfg.initial_state()
+    obs = cfg.data("cuda")
+    model = build_hmm_chain_model(cfg.hmm(), T, "cuda")
+    rng = torch.Generator(device="cuda").manual_seed(6)
+    S = gx.Selection.at
+
+    def launches() -> tuple[int, int]:
+        return ops.fused_logsumexp.launches, ops.fused_logsumexp_ess.launches
+
+    def unfold():
+        """One unfold and its LML; only small values leave, so the 27 GB of
+        a run's trace go back to the allocator."""
+        before = launches()
+        col = run_hmm_importance(rng, model, obs, init, K)
+        lml = col.get_log_marginal_likelihood_estimate()
+        counts = tuple(a - b for a, b in zip(launches(), before))
+        return lml, tuple(col.get_particles().get_choices()["z"].shape), counts
+
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, results = timed_runs(unfold, HMM_RUNS)
+    peak = torch.cuda.max_memory_allocated() - base_bytes
+    for lml, z_shape, counts in results:
+        check(math.isfinite(float(lml)), "HMM unfold: LML not finite")
+        check(z_shape == (K, T), f"HMM unfold: z is {z_shape}, not {(K, T)}")
+        check(counts == (1, 0), f"HMM unfold: {counts} (logsumexp, logsumexp_ess) launches per LML, not (1, 0)")
+    syncs = count_syncs(unfold)
+    check(syncs == 0, f"the HMM unfold made {syncs} device synchronisations over {T} scan steps")
+    ms = statistics.median(times)
+    print(f"[{card}] HMM unfold K={K} T={T} ({cfg.n_states} states, every x constrained): {ms:.3f} ms/unfold "
+          f"(median of {HMM_RUNS}: {', '.join(f'{t:.2f}' for t in times)}; host clock between syncs), "
+          f"{K * T / (ms * 1e-3):.4g} particle-steps/s; z is {results[-1][1]}; "
+          f"K1 launches per LML: 1; device synchronisations per scan step: 0 ({syncs} per unfold); "
+          f"peak device memory {peak / 2**30:.2f} GiB over {base_bytes / 2**20:.1f} MiB")
+    prof = profiling.trace(unfold, T)
+    print(f"[{card}] HMM unfold profile: wall {prof['wall_ms']:.3f} ms, device busy {prof['device_busy_ms']:.3f} ms, "
+          f"idle {100 * prof['idle_share']:.1f}%, {prof['device_items_per_step']:.1f} device items and "
+          f"{prof['launch_calls_per_step']:.1f} launch calls per scan step; largest: "
+          + "; ".join(f"{i['name'][:60]} x{i['count']} {i['ms']:.2f} ms" for i in prof["largest"]))
+
+    # K1 on this run's own weights against its plain twin (a comparison,
+    # so it leaves the count alone), and the T=50 ESS.
+    col = run_hmm_importance(rng, model, obs, init, K)
+    lw = col.get_log_weights()
+    per_step = col.get_particles().inner.get_score()
+    check(per_step.shape == (K, T), f"HMM unfold: per-step scores {tuple(per_step.shape)}, not {(K, T)}")
+    check(relative_error(per_step.sum(-1), col.get_particles().get_score()) <= 1e-5, "HMM unfold: the per-step scores do not add up")
+    del per_step
+    counted = launches()
+    got, (got_lse, got_ess) = ops.fused_logsumexp(lw), ops.fused_logsumexp_ess(lw)
+    ops.fused_logsumexp.launches, ops.fused_logsumexp_ess.launches = counted
+    ok, err = close(got, ops.logsumexp_plain(lw))
+    check(ok, f"logsumexp on the HMM log weights (K={K}): {float(got)} vs plain {float(ops.logsumexp_plain(lw))}")
+    ok_e, err_e = close(got_lse, ops.logsumexp_ess_plain(lw)[0])
+    check(ok_e, "logsumexp_ess on the HMM log weights")
+    print(f"logsumexp == plain on the HMM unfold's log weights (K={K}): |err| {err:.3e}, logsumexp_ess {err_e:.3e} "
+          f"(tolerance 1e-5 * max(1, |ref|)); ESS at T={T}: {float(got_ess):.1f} of {K} (likelihood weighting "
+          f"is degenerate at this length, hence the oracle check at T={HMM_ORACLE_STEPS})")
+    del col, lw
+
+    # Exactness: `assess` of exact posterior paths equals the closed form,
+    # on the card and on the CPU.
+    paths, _ = forward_filtering_backward_sampling(rng, cfg.hmm(), obs, HMM_PATHS)
+    sample = gx.ChoiceMap.kw(z=gx.per_particle(paths), x=obs)
+    score, _ = model.assess(sample, (init, None), n=HMM_PATHS)
+    prior, trans, emit = cfg.hmm().tables("cuda")
+    ref = path_joint_logpdf(trans[init], trans, emit, paths, obs)
+    err_form = relative_error(score, ref)
+    check(score.shape == (HMM_PATHS,) and bool(torch.isfinite(score).all()), "HMM assess: shape or non-finite")
+    check(err_form <= 1e-4, f"HMM assess of {HMM_PATHS} FFBS paths vs path_joint_logpdf: relative error {err_form}")
+    cpu_model = build_hmm_chain_model(cfg.hmm(), T, "cpu")
+    cpu_sample = gx.ChoiceMap.kw(z=gx.per_particle(paths.cpu()), x=obs.cpu())
+    cpu_score, _ = cpu_model.assess(cpu_sample, (init, None), n=HMM_PATHS)
+    err_cpu = relative_error(score, cpu_score)
+    check(err_cpu <= 1e-4, f"HMM assess on the card vs the CPU: relative error {err_cpu}")
+    print(f"HMM assess of {HMM_PATHS} FFBS paths (T={T}): relative error {err_form:.3e} against path_joint_logpdf, "
+          f"{err_cpu:.3e} against the CPU (limit 1e-4)")
+
+    # Against the oracle: the likelihood-weighting LML at T=8.
+    short = build_hmm_chain_model(cfg.hmm(), HMM_ORACLE_STEPS, "cuda")
+    obs_short = cfg.data("cuda", HMM_ORACLE_STEPS)
+    exact = float(exact_log_marginal(cfg.hmm(), obs_short, init))
+    lmls = [float(run_hmm_importance(rng, short, obs_short, init, K).get_log_marginal_likelihood_estimate())
+            for _ in range(HMM_ORACLE_RUNS)]
+    print(f"HMM T={HMM_ORACLE_STEPS} K={K} " + within_se(lmls, exact, "LML against forward_filter's exact marginal"))
+
+    # The single-step edit against the dense re-scan, same draws.
+    chains = run_hmm_importance(rng, model, obs, init, HMM_EDIT_CHAINS).get_particles()
+    worst = 0.0
+    for t in range(T):
+        one, w_one, _, _ = chains.edit(
+            torch.Generator(device="cuda").manual_seed(1000 + t), gx.IndexRequest(t, gx.Regenerate(S["z"])))
+        dense, w_dense, _, _ = chains.edit(
+            torch.Generator(device="cuda").manual_seed(1000 + t), gx.Regenerate(S[t, "z"]))
+        check(bool(torch.equal(one.get_choices()["z"], dense.get_choices()["z"])),
+              f"IndexRequest({t}) and the dense Regenerate drew different z")
+        check(bool(torch.isfinite(w_one).all()), f"IndexRequest({t}) weight not finite")
+        worst = max(worst, relative_error(w_one, w_dense), relative_error(one.get_score(), dense.get_score()))
+    check(worst <= 1e-4, f"IndexRequest weight vs the dense re-scan's: relative error {worst}")
+
+    def moves(request_at):
+        tr = chains
+        for t in range(T):
+            tr, _ = gx.mh(rng, tr, request_at(t))
+        return tr.get_score()
+
+    one_times, _ = timed_runs(lambda: moves(lambda t: gx.IndexRequest(t, gx.Regenerate(S["z"]))), 3)
+    dense_times, _ = timed_runs(lambda: moves(lambda t: gx.Regenerate(S[t, "z"])), 3)
+    one_ms, dense_ms = statistics.median(one_times) / T, statistics.median(dense_times) / T
+    print(f"[{card}] Scan.edit_index at C={HMM_EDIT_CHAINS} T={T}: weight and z equal the dense Regenerate re-scan's "
+          f"for the same draws at every t (relative error {worst:.3e}, limit 1e-4); one MH move "
+          f"{one_ms:.3f} ms by IndexRequest, {dense_ms:.3f} ms by the dense re-scan ({dense_ms / one_ms:.1f}x; "
+          f"median of 3 sweeps over t, host clock between syncs)")
+
+
+def phase_logreg_vmap(gx, card: str) -> None:
+    """Logistic-regression HMC with the likelihood as a `vmap` over the
+    data points, against the vector-site model of the MCMC path."""
+    from genjax_tpu_torch import profiling
+    from genjax_tpu_torch.models.logreg import (
+        VMAP_YS, BenchConfig, init_chains, logistic_regression, logistic_regression_vmap, run_hmc_chains,
+    )
+
+    cfg = BenchConfig()
+    X, ys = cfg.data("cuda")
+    rng = torch.Generator(device="cuda").manual_seed(8)
+    w = torch.randn(cfg.n_chains, cfg.dim, generator=rng, device="cuda")
+    vector, _ = logistic_regression.assess(gx.ChoiceMap.kw(w=gx.per_particle(w), ys=ys), (X,), n=cfg.n_chains)
+    lanes, logits = logistic_regression_vmap.assess(
+        gx.ChoiceMap.d({"w": gx.per_particle(w), VMAP_YS: ys}), (X,), n=cfg.n_chains)
+    err = relative_error(lanes, vector)
+    check(lanes.shape == (cfg.n_chains,) and logits.shape == (cfg.n_chains, cfg.n_data), "vmapped logreg: shapes")
+    check(err <= 1e-4, f"vmapped logreg assess vs the vector-site model: relative error {err}")
+
+    chains = init_chains(rng, X, ys, cfg.n_chains, logistic_regression_vmap, VMAP_YS)
+    per_lane = chains.get_subtrace("data").inner.get_score()
+    check(per_lane.shape == (cfg.n_chains, cfg.n_data), f"vmapped logreg: per-lane scores {tuple(per_lane.shape)}")
+    request = gx.HMC(gx.Selection.at["w"], cfg.eps, L=cfg.L)
+    syncs = count_syncs(lambda: gx.run_chains(rng, chains, request, cfg.n_steps))
+    check(syncs == 0, f"run_chains through Vmap made {syncs} device synchronisations over {cfg.n_steps} MH steps")
+
+    models = (("vector", (logistic_regression, "ys")), ("vmap", (logistic_regression_vmap, VMAP_YS)))
+
+    def run(model, ys_address):
+        return run_hmc_chains(rng, X, ys, n_chains=cfg.n_chains, n_steps=cfg.n_steps, eps=cfg.eps, L=cfg.L,
+                              model=model, ys_address=ys_address)
+
+    # Side by side, in turns, so that the host's drift hits both alike.
+    for _, model in models:
+        run(*model)
+    times = {"vector": [], "vmap": []}
+    finals = {}
+    for _ in range(VMAP_HMC_RUNS):
+        for name, model in models:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            finals[name], accs = run(*model)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+            check(bool(torch.isfinite(finals[name]).all()) and 0.0 < accs.float().mean().item() <= 1.0,
+                  f"HMC ({name}): non-finite w or accept rate out of range")
+    dist = within_combined_se(finals["vmap"], finals["vector"], "HMC final w, vmapped likelihood against vector site")
+    steps = cfg.n_steps * cfg.L
+    profs = {name: profiling.trace(lambda m=model: run(*m), steps) for name, model in models}
+    ms = {name: statistics.median(t) for name, t in times.items()}
+    print(f"vmapped logreg C={cfg.n_chains} N={cfg.n_data} D={cfg.dim}: assess equals the vector-site model's "
+          f"(relative error {err:.3e}, limit 1e-4); per-lane scores {tuple(per_lane.shape)}; final w within "
+          f"{dist:.2f} combined SE of the vector-site model's (limit 5); {syncs} device synchronisations over "
+          f"{cfg.n_steps} MH steps (0 per step)")
+    print(f"[{card}] HMC through Vmap C={cfg.n_chains} S={cfg.n_steps} L={cfg.L}: {ms['vmap']:.3f} ms/run against "
+          f"{ms['vector']:.3f} for the vector-site model ({ms['vmap'] / ms['vector']:.3f}x; medians of "
+          f"{VMAP_HMC_RUNS} alternating runs, host clock between syncs); per leapfrog step "
+          f"{profs['vmap']['launch_calls_per_step']:.1f} launch calls and {profs['vmap']['device_items_per_step']:.1f} "
+          f"device items against {profs['vector']['launch_calls_per_step']:.1f} and "
+          f"{profs['vector']['device_items_per_step']:.1f}; device busy {profs['vmap']['device_busy_ms']:.3f} ms "
+          f"against {profs['vector']['device_busy_ms']:.3f}, idle {100 * profs['vmap']['idle_share']:.1f}% against "
+          f"{100 * profs['vector']['idle_share']:.1f}%")
+
+
+def phase_repeat(gx) -> None:
+    """`repeat` on the card: its lanes come from a static count, so every
+    leaf of its trace lies on the card; a constraint on one lane weighs
+    that lane's density, and an `IndexRequest` edit of one lane weighs the
+    density ratio (both against the closed-form normal, 1e-5 relative)."""
+    import torch.utils._pytree as pytree
+
+    @gx.gen
+    def draw(mu, sigma):
+        return gx.normal(mu, sigma) @ "x"
+
+    def logpdf(x, mu, sigma):
+        return -0.5 * ((x - mu) / sigma) ** 2 - math.log(sigma) - 0.5 * math.log(2.0 * math.pi)
+
+    k, lanes, sigma = 8192, 16, 0.7
+    rng = torch.Generator(device="cuda").manual_seed(9)
+    mu = torch.randn(k, generator=rng, device="cuda")
+    seen, moved = torch.tensor(0.5, device="cuda"), torch.tensor(-0.5, device="cuda")
+    tr, w = draw.repeat(n=lanes).generate(rng, gx.ChoiceMap.d({(2, "x"): seen}), (gx.per_particle(mu), sigma), n=k)
+    xs = tr.get_choices()["x"]
+    new, w_edit, _, _ = tr.edit(rng, gx.IndexRequest(3, gx.Update(gx.ChoiceMap.kw(x=moved))))
+    on_card = all(v.is_cuda for t in (tr, new) for v in pytree.tree_leaves(t) if isinstance(v, torch.Tensor))
+    check(on_card, "repeat: a leaf of its trace lies on the CPU")
+    check(xs.shape == (k, lanes) and tr.inner.get_score().shape == (k, lanes), f"repeat: choices {tuple(xs.shape)}")
+    errs = (relative_error(w, logpdf(seen, mu, sigma)),
+            relative_error(w_edit, logpdf(moved, mu, sigma) - logpdf(xs[:, 3], mu, sigma)),
+            relative_error(new.get_score(), logpdf(new.get_choices()["x"], mu[:, None], sigma).sum(-1)))
+    check(max(errs) <= 1e-5, f"repeat: generate weight, IndexRequest weight, edited score off by {errs}")
+    print(f"repeat K={k} n={lanes}: every trace leaf on the card; one-lane generate weight, IndexRequest weight and "
+          f"edited score within {max(errs):.3e} relative of the closed form (limit 1e-5)")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -595,13 +841,16 @@ def main() -> None:
     paths = {
         "particle": drive(lambda: (phase_sir(gx, ops, card), phase_filter(ops, card))),
         "mcmc": drive(lambda: (phase_hmc(gx, card), phase_polyreg(gx, ops, card))),
+        "combinator": drive(lambda: (phase_hmm_scan(gx, ops, card), phase_logreg_vmap(gx, card), phase_repeat(gx))),
     }
     launches = {name: sum(p[name] for p in paths.values()) for name in ("logsumexp", "logsumexp_ess")}
     for name, count in paths["particle"].items():
         check(count > 0, f"the particle path launched no {name} kernel")
     check(paths["mcmc"]["logsumexp"] > 0, "the MCMC path (polyreg) launched no logsumexp kernel")
+    check(paths["combinator"]["logsumexp"] > 0, "the combinator path (the HMM unfold) launched no logsumexp kernel")
     print("kernel launches on the main paths: " + ", ".join(
-        f"{name} {count} (particle path {paths['particle'][name]}, MCMC path {paths['mcmc'][name]})"
+        f"{name} {count} (particle path {paths['particle'][name]}, MCMC path {paths['mcmc'][name]}, "
+        f"combinator path {paths['combinator'][name]})"
         for name, count in launches.items()))
 
     print(json.dumps({"kernels": [{

@@ -1,8 +1,9 @@
 """Carry state from the JAX package into the port.
 
 The JAX side turns its values into numpy (`np.asarray`); these functions
-turn those into the port's objects: tensors, choice maps, static traces,
-chain batches and particle collections. Traces are rebuilt by the port's own fully
+turn those into the port's objects: tensors, choice maps (string and
+integer address components), traces of `@gen` functions and of the
+combinators, chain batches and particle collections. Traces are rebuilt by the port's own fully
 constrained `generate`, so their scores are the port's densities of the
 carried values. Everything lands on the CUDA card unless the caller passes
 `device="cpu"`. This module imports no JAX.
@@ -14,10 +15,9 @@ import numpy as np
 import torch
 
 from genjax_tpu_torch.core.choice_map import ChoiceMap
-from genjax_tpu_torch.core.gfi import GenerativeFunction
+from genjax_tpu_torch.core.gfi import GenerativeFunction, Trace
 from genjax_tpu_torch.core.typing import per_particle
 from genjax_tpu_torch.inference.smc import ParticleCollection
-from genjax_tpu_torch.lang.static import StaticTrace
 
 
 def tensor(x: Any, device: torch.device | str = "cuda") -> torch.Tensor:
@@ -25,37 +25,55 @@ def tensor(x: Any, device: torch.device | str = "cuda") -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True)).to(device)
 
 
-def choice_map(entries: dict, device: torch.device | str = "cuda") -> ChoiceMap:
-    """`{address: array}` (an address is a string or a tuple of strings) as
-    a choice map of tensors."""
-    return ChoiceMap.d({addr: tensor(v, device) for addr, v in entries.items()})
+def choice_map(entries: dict, device: torch.device | str = "cuda", n: int | None = None) -> ChoiceMap:
+    """`{address: array}` as a choice map of tensors. An address is a
+    string or a tuple of strings and integers: `("data", 3, "y")` nests
+    under an index as JAX's `Indexed` does, `("data", "y")` holds a
+    `Vmap`'s or `Scan`'s choices stacked, as their traces store them. With
+    `n`, every array carries a leading particle axis of that length (in
+    front of a stacked array's lane or step axis) and is recorded so."""
+    mark = per_particle if n is not None else (lambda v: v)
+    return ChoiceMap.d({addr: mark(tensor(v, device)) for addr, v in entries.items()})
 
 
 def _args(args: tuple, device) -> tuple:
     return tuple(tensor(a, device) if isinstance(a, np.ndarray) else a for a in args)
 
 
-def static_trace(
+def trace(
     gen_fn: GenerativeFunction,
     args: tuple,
     choices: dict,
     n: int | None = None,
     device: torch.device | str = "cuda",
     observations: dict | None = None,
-) -> StaticTrace:
+    kind: type | None = None,
+) -> Trace:
     """The port's trace of `gen_fn(*args)` holding exactly `choices` and
-    `observations` (`{address: array}`). With `n`, every array of
-    `choices` carries a leading particle axis of length `n` and is recorded
-    so; the arrays of `observations` are shared by every particle. Numpy
-    arguments become tensors. Every address of the model must be given: a
-    missing one raises `MissingAddress` instead of being drawn afresh."""
-    mark = per_particle if n is not None else (lambda v: v)
-    chm = ChoiceMap.d({addr: mark(tensor(v, device)) for addr, v in choices.items()})
-    chm = chm | choice_map(observations or {}, device)
+    `observations` (`{address: array}`): of a `@gen` function, or of a
+    combinator (a JAX `VmapTrace`, `ScanTrace` or `DimapTrace` carried
+    across; a `Vmap`'s and a `Scan`'s choices are given stacked, as
+    `np.asarray(tr.get_choices()["y"])` holds them). With `n`, every array
+    of `choices` carries a leading particle axis of length `n`, in front of
+    a lane or step axis (where JAX's `vmap` of the method puts it too), and
+    is recorded so; the arrays of `observations` are shared by every
+    particle. Numpy arguments become shared tensors; a per-particle
+    argument is given as a tensor marked with `per_particle`. Every address
+    of the model must be given: a missing one raises `MissingAddress`
+    instead of being drawn afresh. The trace is rebuilt by the port's own
+    `generate`, so the batch record is set and the per-lane and per-step
+    scores are the port's. `kind` names the trace class the caller expects
+    (`ScanTrace`, ...): another raises `TypeError`."""
+    chm = choice_map(choices, device, n) | choice_map(observations or {}, device)
     args = _args(args, device)
     gen_fn.assess(chm, args, n)  # raises MissingAddress for an absent address
-    trace, _ = gen_fn.generate(torch.Generator(device=device), chm, args, n)
-    return trace
+    built, _ = gen_fn.generate(torch.Generator(device=device), chm, args, n)
+    if kind is not None and not isinstance(built, kind):
+        raise TypeError(f"convert: {type(built).__name__} where a {kind.__name__} was asked for")
+    return built
+
+
+static_trace = trace  # the name from before the combinators
 
 
 def chain_batch(
@@ -64,7 +82,7 @@ def chain_batch(
     per_chain: dict,
     shared: dict | None = None,
     device: torch.device | str = "cuda",
-) -> StaticTrace:
+) -> Trace:
     """A JAX chain batch carried across: the arrays of `per_chain` hold
     one row per chain (C rows each, as JAX's `vmap`-built batch holds
     them), those of `shared` (the observations) one copy for every chain.

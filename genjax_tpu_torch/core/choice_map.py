@@ -1,37 +1,144 @@
-"""Addressed sample storage: `ChoiceMap` and `Selection`, static addresses.
+"""Addressed sample storage: `ChoiceMap` and `Selection`, with static and
+indexed addresses.
 
-Counterpart of `genjax_tpu/core/choice_map.py`, restricted to string
-addresses (and tuples of them). A choice map is a trie: `Static` nodes
-map address components to sub-maps, `Choice` leaves hold values, `Or`
-is a left-priority union. The trie's keys live in the pytree context, so
-resolving an address costs nothing on the device. A `Choice` records
-whether its value carries a leading particle axis (`batched`); a value
-without one (an observation) is shared by every particle. The record is
-set where the value is made (a trace's draw, or a value marked with
-`core.typing.per_particle`), never read off its size.
+Counterpart of `genjax_tpu/core/choice_map.py`. A choice map is a trie:
+`Static` nodes map string components to sub-maps, `Choice` leaves hold
+values, `Indexed` nests a map under an integer index (a Python int, a 0-d
+integer tensor, or a 1-d tensor pairing each leading row of the sub-map's
+leaves with an index), `Or` is a left-priority union. The trie's keys live
+in the pytree context, so resolving a string address costs nothing on the
+device.
 
-Dynamic (integer-array) addresses, masks and switch nodes come with the
-combinators.
+A `Choice` records its depth: how many leading batch axes its value
+carries (0: shared by every particle; 1: the particle axis; more under a
+`Vmap`, see `core/typing.py`). The record is set where the value is made
+(a trace's draw, or a value marked with `core.typing.per_particle`), never
+read off its size.
+
+The choices of a `Vmap` or `Scan` trace are stored stacked: `chm["x"]` is
+the whole array, with the lane or step axis right after the batch axes,
+and an index component addresses that axis: `chm[i, "x"]`, `chm(i)`.
+`S[i, "x"]` selects one lane or step, `S[..., "x"]` every one.
+
+A combinator that runs every lane at once asks about all of them in one
+call (`at_lanes`): the answer to "which lanes hold a value" or "which
+lanes are selected" is then a boolean tensor over the lanes, carried by a
+`FlaggedChoice` or a `LaneSel`. `Mask`, `Switch` and `MaskedSel`, the
+general forms of these, come with the `switch` and `mask` combinators.
 """
 
+from types import EllipsisType
 from typing import Any, Iterable
 
-from genjax_tpu_torch.core.pytree import Pytree, n_leaves
-from genjax_tpu_torch.core.typing import is_per_particle, plain
+import torch
 
-Address = str | tuple[str, ...]
+from genjax_tpu_torch.core.pytree import Pytree, n_leaves
+from genjax_tpu_torch.core.typing import depth_of, plain
+
+StaticAddressComponent = str
+DynamicAddressComponent = int | slice | torch.Tensor
+AddressComponent = DynamicAddressComponent | StaticAddressComponent
+Address = tuple[AddressComponent, ...] | AddressComponent
+ExtendedAddressComponent = EllipsisType | AddressComponent
+
+_full_slice = slice(None)
 
 
 def _tuplize(addr) -> tuple:
     return addr if isinstance(addr, tuple) else (addr,)
 
 
-def _check_component(comp) -> None:
-    if not isinstance(comp, str):
-        raise TypeError(
-            f"Address components must be strings; got {comp!r} of type "
-            f"{type(comp).__name__}. Dynamic addresses are not supported yet."
-        )
+def _is_index_tensor(comp) -> bool:
+    return isinstance(comp, torch.Tensor) and not comp.is_floating_point() and comp.dtype != torch.bool
+
+
+def _is_scalar_component(comp) -> bool:
+    if isinstance(comp, bool):
+        return False
+    return isinstance(comp, int) or (_is_index_tensor(comp) and comp.dim() == 0)
+
+
+def _is_full_slice(comp) -> bool:
+    return isinstance(comp, slice) and comp == _full_slice
+
+
+def _validate_addr(addr: tuple, allow_partial_slice: bool = False) -> tuple:
+    """Check the shape grammar of an address's index components.
+
+    String components are transparent. The index components must be, in
+    order: a run of scalars (ints, 0-d integer tensors); at most one
+    fan-out component (a 1-d index tensor, or a partial slice when
+    `allow_partial_slice`); then only full slices. Anything else cannot be
+    resolved against dense leaf storage in one gather."""
+    in_scalar_prefix = True
+    for comp in addr:
+        if isinstance(comp, str) or comp is ...:
+            continue
+        if not (isinstance(comp, (int, slice)) and not isinstance(comp, bool)) and not _is_index_tensor(comp):
+            raise TypeError(
+                f"Address components are strings, ints, integer tensors, slices or `...`; "
+                f"got {comp!r} of type {type(comp).__name__}."
+            )
+        if in_scalar_prefix:
+            if _is_scalar_component(comp):
+                continue
+            in_scalar_prefix = False
+            if isinstance(comp, torch.Tensor):
+                if comp.dim() != 1:
+                    raise ValueError(f"An index tensor in an address is 0-d or 1-d; got shape {tuple(comp.shape)}.")
+                continue
+            if allow_partial_slice and not _is_full_slice(comp):
+                continue
+        if not _is_full_slice(comp):
+            grammar = (
+                "scalars, then at most one index tensor or partial slice, then full slices"
+                if allow_partial_slice
+                else "scalars, then at most one index tensor, then full slices"
+            )
+            raise ValueError(
+                f"Unresolvable address {addr!r}: expected {grammar}; component {comp!r} breaks the grammar."
+            )
+    return addr
+
+
+def _host_int(comp) -> int | None:
+    """An index component as a Python int where the host can read it for
+    free (an int, or a 0-d CPU tensor); None for a tensor on a device."""
+    if isinstance(comp, int):
+        return comp
+    if isinstance(comp, torch.Tensor) and comp.dim() == 0 and comp.device.type == "cpu":
+        return int(comp)
+    return None
+
+
+# Flags are Python bools where the answer is known when the map or the
+# selection is built, and boolean tensors over the lanes otherwise.
+
+
+def _and(a, b):
+    if a is False or b is False:
+        return False
+    if a is True:
+        return b
+    return a if b is True else a & b
+
+
+def _or(a, b):
+    if a is True or b is True:
+        return True
+    if a is False:
+        return b
+    return a if b is False else a | b
+
+
+def _not(a):
+    return (not a) if isinstance(a, bool) else ~a
+
+
+def _deeper(flag):
+    """A flag over the lanes of the enclosing levels, seen from one lane
+    level further in: flags stay aligned to the innermost batch axis."""
+    return flag.unsqueeze(-1) if isinstance(flag, torch.Tensor) else flag
 
 
 ##############
@@ -40,20 +147,29 @@ def _check_component(comp) -> None:
 
 
 class _SelectionBuilder:
-    def __getitem__(self, addr: Address) -> "Selection":
-        # Subtree semantics: S[p] selects p and everything beneath it.
-        return Selection.all().extend(*_tuplize(addr))
+    def __getitem__(self, addr) -> "Selection":
+        # Subtree semantics: S[p] selects p and everything beneath it;
+        # S[()] selects this node only.
+        path = _tuplize(addr)
+        if not path:
+            return Selection.leaf()
+        return Selection.all().extend(*path)
 
 
 class Selection(Pytree):
     """An address-set algebra: `sel(addr)` is the sub-selection at `addr`,
     `sel[addr]` / `addr in sel` whether `addr` is selected, `~sel` the
-    complement.
+    complement, `|` and `&` union and intersection. The wildcard `...`
+    matches zero or one address components, so `S[..., "z"]` addresses
+    both a stacked trie's flat `"z"` and the `(step, "z")` space of
+    `Scan` and `Vmap` edits.
 
     >>> from genjax_tpu_torch.core.choice_map import Selection
-    >>> sel = Selection.at["x"]
-    >>> "x" in sel, "y" in sel, "y" in ~sel
-    (True, False, True)
+    >>> sel = Selection.at["x"] | Selection.at[2, "y"]
+    >>> "x" in sel, "y" in sel, "y" in ~sel, (2, "y") in sel, (1, "y") in sel
+    (True, False, True, True, False)
+    >>> (3, "z") in Selection.at[..., "z"], "z" in Selection.at[..., "z"]
+    (True, True)
     """
 
     at = _SelectionBuilder()
@@ -66,33 +182,56 @@ class Selection(Pytree):
     def none() -> "Selection":
         return NoneSel()
 
+    @staticmethod
+    def leaf() -> "Selection":
+        return LeafSel()
+
     def __invert__(self) -> "Selection":
         return ComplementSel.build(self)
 
-    def extend(self, *addrs: str) -> "Selection":
+    def __or__(self, other: "Selection") -> "Selection":
+        return OrSel.build(self, other)
+
+    def __and__(self, other: "Selection") -> "Selection":
+        return AndSel.build(self, other)
+
+    def extend(self, *addrs: ExtendedAddressComponent) -> "Selection":
         nested = self
         for comp in reversed(addrs):
-            _check_component(comp)
+            if not (isinstance(comp, str) or comp is ... or _is_scalar_component(comp)):
+                raise TypeError(
+                    f"A selection's address components are strings, ints, 0-d integer tensors "
+                    f"or `...`; got {comp!r} of type {type(comp).__name__}."
+                )
             nested = nested if isinstance(nested, NoneSel) else StaticSel(nested, comp)
         return nested
 
-    def __call__(self, addr: Address) -> "Selection":
+    def __call__(self, addr) -> "Selection":
         sub = self
         for comp in _tuplize(addr):
             sub = sub.get_subselection(comp)
         return sub
 
-    def __getitem__(self, addr: Address) -> bool:
+    def __getitem__(self, addr) -> bool:
         return self(addr).check()
 
-    def __contains__(self, addr: Address) -> bool:
+    def __contains__(self, addr) -> bool:
         return self[addr]
 
-    def check(self) -> bool:
+    def check(self):
+        """Whether this node is selected: a bool, or a boolean tensor over
+        the lanes after `at_lanes`."""
         raise NotImplementedError
 
-    def get_subselection(self, addr: str) -> "Selection":
+    def get_subselection(self, addr) -> "Selection":
         raise NotImplementedError
+
+    def at_lanes(self, lanes: torch.Tensor) -> "Selection":
+        """The sub-selection at every index of `lanes` (a 1-d tensor,
+        `arange(N)` on the device) at once: `check()` of what comes back
+        is a boolean tensor over the lanes where the answer differs from
+        lane to lane."""
+        return self.get_subselection(lanes)
 
 
 @Pytree.dataclass
@@ -114,6 +253,15 @@ class NoneSel(Selection):
 
 
 @Pytree.dataclass
+class LeafSel(Selection):
+    def check(self) -> bool:
+        return True
+
+    def get_subselection(self, addr) -> Selection:
+        return NoneSel()
+
+
+@Pytree.dataclass
 class ComplementSel(Selection):
     s: Selection
 
@@ -127,8 +275,8 @@ class ComplementSel(Selection):
             return s.s
         return ComplementSel(s)
 
-    def check(self) -> bool:
-        return not self.s.check()
+    def check(self):
+        return _not(self.s.check())
 
     def get_subselection(self, addr) -> Selection:
         return ~self.s(addr)
@@ -137,13 +285,93 @@ class ComplementSel(Selection):
 @Pytree.dataclass
 class StaticSel(Selection):
     s: Selection
-    addr: str = Pytree.static()
+    addr: Any = Pytree.static()
 
-    def check(self) -> bool:
-        return False
+    def check(self):
+        # `...` matches zero or one levels, so a wildcard selection is
+        # checked against its inner selection.
+        return self.s.check() if self.addr is ... else False
 
     def get_subselection(self, addr) -> Selection:
-        return self.s if addr == self.addr else NoneSel()
+        if self.addr is ...:
+            # Zero levels (a stacked trie stores "z" flat) or one (an edit
+            # addresses `(idx, "z")`): both at once.
+            return OrSel.build(self.s, self.s(addr))
+        if addr is ...:
+            return self.s
+        if isinstance(self.addr, str) or isinstance(addr, str):
+            return self.s if isinstance(addr, str) and addr == self.addr else NoneSel()
+        if isinstance(addr, torch.Tensor) and addr.dim() == 1:
+            return LaneSel.build(self.s, addr == self.addr)
+        mine, theirs = _host_int(self.addr), _host_int(addr)
+        if mine is not None and theirs is not None:
+            return self.s if mine == theirs else NoneSel()
+        return LaneSel.build(self.s, torch.as_tensor(addr == self.addr))
+
+
+@Pytree.dataclass
+class LaneSel(Selection):
+    """A selection that holds where `flag` is true: `S[i, "x"]` asked
+    about every lane at once holds in lane `i`. The flag is a boolean
+    tensor over the lanes, aligned to the innermost batch axis."""
+
+    s: Selection
+    flag: Any
+
+    @staticmethod
+    def build(s: Selection, flag) -> Selection:
+        if flag is True:
+            return s
+        if flag is False or isinstance(s, NoneSel):
+            return NoneSel()
+        return LaneSel(s, flag)
+
+    def check(self):
+        return _and(self.flag, self.s.check())
+
+    def get_subselection(self, addr) -> Selection:
+        lanes = isinstance(addr, torch.Tensor) and addr.dim() == 1
+        return LaneSel.build(self.s(addr), _deeper(self.flag) if lanes else self.flag)
+
+
+@Pytree.dataclass
+class AndSel(Selection):
+    s1: Selection
+    s2: Selection
+
+    @staticmethod
+    def build(a: Selection, b: Selection) -> Selection:
+        if isinstance(a, AllSel) or isinstance(b, NoneSel):
+            return b
+        if isinstance(b, AllSel) or isinstance(a, NoneSel):
+            return a
+        return AndSel(a, b)
+
+    def check(self):
+        return _and(self.s1.check(), self.s2.check())
+
+    def get_subselection(self, addr) -> Selection:
+        return self.s1(addr) & self.s2(addr)
+
+
+@Pytree.dataclass
+class OrSel(Selection):
+    s1: Selection
+    s2: Selection
+
+    @staticmethod
+    def build(a: Selection, b: Selection) -> Selection:
+        if isinstance(a, AllSel) or isinstance(b, NoneSel):
+            return a
+        if isinstance(b, AllSel) or isinstance(a, NoneSel):
+            return b
+        return OrSel(a, b)
+
+    def check(self):
+        return _or(self.s1.check(), self.s2.check())
+
+    def get_subselection(self, addr) -> Selection:
+        return self.s1(addr) | self.s2(addr)
 
 
 @Pytree.dataclass
@@ -152,11 +380,39 @@ class ChmSel(Selection):
 
     c: "ChoiceMap"
 
-    def check(self) -> bool:
-        return self.c.has_value()
+    def check(self):
+        if self.c.get_value() is None:
+            return False
+        flag = self.c.get_flag()
+        return True if flag is None else flag
 
     def get_subselection(self, addr) -> Selection:
+        if isinstance(addr, torch.Tensor) and addr.dim() == 1:
+            return ChmSel(self.c.at_lanes(addr))
         return ChmSel(self.c.get_inner_map(addr))
+
+
+def statically_unmatchable_at_index_level(sel: Selection) -> bool:
+    """True when `sel(i)` is `NoneSel` for every integer index `i`: the
+    selection cannot address into a `Scan`'s steps or a `Vmap`'s lanes.
+    The combinators raise on such a selection instead of regenerating or
+    projecting nothing; use `Selection.at[..., "addr"]` or
+    `Selection.at[i, "addr"]` there."""
+    match sel:
+        case NoneSel():
+            return True
+        case AllSel() | LeafSel():
+            return False
+        case StaticSel(_, addr):
+            return isinstance(addr, str)
+        case OrSel(s1, s2):
+            return statically_unmatchable_at_index_level(s1) and statically_unmatchable_at_index_level(s2)
+        case AndSel(s1, s2):
+            return statically_unmatchable_at_index_level(s1) or statically_unmatchable_at_index_level(s2)
+        case LaneSel(s, _):
+            return statically_unmatchable_at_index_level(s)
+        case _:
+            return False
 
 
 ###############
@@ -171,10 +427,14 @@ class ChoiceMapNoValueAtAddress(Exception):
 class ChoiceMap(Pytree):
     """A functional trie of addressed random choices.
 
+    >>> import torch
     >>> from genjax_tpu_torch.core.choice_map import ChoiceMap
     >>> chm = ChoiceMap.kw(x=1.0) | ChoiceMap.d({("sub", "y"): 2.0})
     >>> chm["x"], chm["sub", "y"], ("sub", "y") in chm
     (1.0, 2.0, True)
+    >>> steps = ChoiceMap.kw(z=torch.tensor([3, 1, 4]))  # a Scan's choices, stacked
+    >>> int(steps[2, "z"]), (1, "z") in steps, (0, "q") in ChoiceMap.d({(0, "q"): 1.0})
+    (4, True, True)
     """
 
     # -- abstract interface ------------------------------------------------
@@ -185,41 +445,71 @@ class ChoiceMap(Pytree):
     def get_value(self) -> Any:
         raise NotImplementedError
 
-    def get_inner_map(self, addr: str) -> "ChoiceMap":
+    def get_inner_map(self, addr: AddressComponent) -> "ChoiceMap":
+        raise NotImplementedError
+
+    def at_lanes(self, lanes: torch.Tensor) -> "ChoiceMap":
+        """The sub-maps at every index of `lanes` (`arange(N)` on the
+        values' device) at once, as one map whose values carry the lane
+        axis as one more batch axis: a stacked value is taken whole, a
+        value nested under an index becomes a `FlaggedChoice` that holds in
+        that lane alone."""
         raise NotImplementedError
 
     def static_is_empty(self) -> bool:
         return False
 
-    def value_is_batched(self) -> bool:
-        """Whether the value at the root carries the particle axis."""
-        return False
+    def value_is_batched(self) -> int:
+        """The depth of the value at the root: how many batch axes it
+        carries (0 where it is shared)."""
+        return 0
 
-    def batched_leaves(self) -> list[bool]:
-        """The particle-axis record of each leaf, in `tree_leaves` order."""
+    def get_flag(self):
+        """None where the value at the root holds in every lane, else the
+        boolean tensor of the lanes in which it holds."""
+        return None
+
+    def batched_leaves(self) -> list[int]:
+        """The depth of each leaf, in `tree_leaves` order."""
+        raise NotImplementedError
+
+    def map_choices(self, f) -> "ChoiceMap":
+        """The same map with each `Choice` and `FlaggedChoice` node `c`
+        replaced by `f(c)`."""
         raise NotImplementedError
 
     # -- derived interface -------------------------------------------------
 
     def get_submap(self, *addresses: Address) -> "ChoiceMap":
-        chm = self
+        if len(addresses) == 1 and isinstance(addresses[0], str):
+            return self.get_inner_map(addresses[0])  # the common case, with no grammar to check
+        flat: list = []
         for a in addresses:
-            for comp in _tuplize(a):
-                chm = chm.get_inner_map(comp)
+            flat.extend(a) if isinstance(a, tuple) else flat.append(a)
+        chm = self
+        for comp in _validate_addr(tuple(flat), allow_partial_slice=True):
+            chm = chm.get_inner_map(comp)
         return chm
 
     def has_value(self) -> bool:
         return self.get_value() is not None
 
     def get_selection(self) -> Selection:
-        return ChmSel(self)
+        return NoneSel() if self.static_is_empty() else ChmSel(self)
 
-    def extend(self, *addrs: str) -> "ChoiceMap":
+    def extend(self, *addrs: AddressComponent) -> "ChoiceMap":
         nested = self
-        for comp in reversed(addrs):
-            _check_component(comp)
-            nested = Static.build({comp: nested})
+        for comp in reversed(_validate_addr(addrs)):
+            nested = Static.build({comp: nested}) if isinstance(comp, str) else Indexed.build(nested, comp)
         return nested
+
+    def flag_lanes(self, flag) -> "ChoiceMap":
+        """The same map, holding only in the lanes where `flag` is true."""
+        if flag is True:
+            return self
+        if flag is False:
+            return _empty
+        return self.map_choices(lambda c: FlaggedChoice(c.v, _and(flag, True if c.get_flag() is None else c.get_flag()), c.batched))
 
     # -- constructors ------------------------------------------------------
 
@@ -228,13 +518,24 @@ class ChoiceMap(Pytree):
         return _empty
 
     @staticmethod
-    def choice(v: Any, batched: bool = False) -> "ChoiceMap":
+    def choice(v: Any, batched: int = 0) -> "ChoiceMap":
         """A map holding `v` at the root. A value marked with
         `per_particle` (or `batched=True`) carries the particle axis."""
-        return Choice(plain(v), batched or is_per_particle(v))
+        if isinstance(v, torch.Tensor):
+            if v.dim() == 1 and v.shape[0] == 0:
+                return _empty  # a zero-length batch carries no choices
+            depth = depth_of(v)
+            if depth:
+                return Choice(plain(v), max(int(batched), depth))
+        return Choice(v, int(batched))
 
     @staticmethod
-    def entry(v: Any, *addrs: str) -> "ChoiceMap":
+    def flagged(v: Any, flag: torch.Tensor, batched: int = 0) -> "ChoiceMap":
+        """A map holding `v` at the root in the lanes where `flag` is true."""
+        return FlaggedChoice(plain(v), flag, max(int(batched), depth_of(v)))
+
+    @staticmethod
+    def entry(v: Any, *addrs: AddressComponent) -> "ChoiceMap":
         """Nest `v` (a value, dict, or existing map) under an address path."""
         if isinstance(v, dict):
             v = ChoiceMap.d(v)
@@ -278,28 +579,192 @@ class ChoiceMap(Pytree):
         return self.get_submap(addr).has_value()
 
 
+def _index_value(v: Any, depth: int, idx) -> Any:
+    """`v` at `idx` along its first axis past the batch axes; a value with
+    no such axis is shared across the indexed axis and passes through."""
+    if not isinstance(v, torch.Tensor) or v.dim() <= depth:
+        return v
+    if isinstance(idx, int):
+        return v.select(depth, idx)
+    if isinstance(idx, slice):
+        return v[(_full_slice,) * depth + (idx,)]
+    picked = v.index_select(depth, idx.reshape(-1))
+    return picked.squeeze(depth) if idx.dim() == 0 else picked
+
+
+def _as_lanes(v: Any, depth: int, n: int, what: str) -> tuple[Any, int]:
+    """A stacked value seen from inside the lane level: its first axis
+    past the batch axes is the lane axis, one more batch axis. A value
+    with no such axis is the same in every lane: a shared one stays as it
+    is, a batched one gets a lane axis of length 1."""
+    if not isinstance(v, torch.Tensor):
+        return v, depth
+    if v.dim() > depth:
+        if v.shape[depth] != n:
+            raise ValueError(f"{what}: {v.shape[depth]} rows along the indexed axis for {n} lanes")
+        return v, depth + 1
+    return (v, 0) if depth == 0 else (v.unsqueeze(depth), depth + 1)
+
+
+def _one_lane(v: Any, depth: int) -> tuple[Any, int]:
+    """One lane's value seen from inside the lane level: the same in every
+    lane (a `FlaggedChoice` then says in which lane it holds)."""
+    if not isinstance(v, torch.Tensor) or depth == 0:
+        return v, 0
+    return v.unsqueeze(depth), depth + 1
+
+
 @Pytree.dataclass
 class Choice(ChoiceMap):
     """A choice map holding a single value at the root, with the record of
-    whether it carries the particle axis."""
+    how many batch axes it carries."""
 
     v: Any
-    batched: bool = Pytree.static(default=False)
+    batched: int = Pytree.static(default=0)
 
     def filter(self, selection: Selection) -> ChoiceMap:
-        return self if selection.check() else _empty
+        chosen = selection.check()
+        if isinstance(chosen, bool):
+            return self if chosen else _empty
+        return self.flag_lanes(chosen)
 
     def get_value(self) -> Any:
         return self.v
 
-    def value_is_batched(self) -> bool:
+    def value_is_batched(self) -> int:
         return self.batched
 
-    def batched_leaves(self) -> list[bool]:
+    def batched_leaves(self) -> list[int]:
         return [self.batched] * n_leaves(self.v)
 
-    def get_inner_map(self, addr: str) -> ChoiceMap:
-        return _empty
+    def map_choices(self, f) -> ChoiceMap:
+        return f(self)
+
+    def get_inner_map(self, addr) -> ChoiceMap:
+        if isinstance(addr, str):
+            return _empty
+        return Choice(_index_value(self.v, self.batched, addr), self.batched)
+
+    def at_lanes(self, lanes: torch.Tensor) -> ChoiceMap:
+        return Choice(*_as_lanes(self.v, self.batched, lanes.shape[0], "a stacked choice"))
+
+
+@Pytree.dataclass
+class FlaggedChoice(ChoiceMap):
+    """A value at the root that holds only in the lanes where `flag` is
+    true: what a constraint on lane `i` of a `Vmap` looks like from inside
+    the run over all lanes. The flag is aligned to the innermost batch
+    axis."""
+
+    v: Any
+    flag: torch.Tensor
+    batched: int = Pytree.static(default=0)
+
+    def filter(self, selection: Selection) -> ChoiceMap:
+        return self.flag_lanes(selection.check())
+
+    def get_value(self) -> Any:
+        return self.v
+
+    def get_flag(self):
+        return self.flag
+
+    def value_is_batched(self) -> int:
+        return self.batched
+
+    def batched_leaves(self) -> list[int]:
+        return [self.batched] * n_leaves(self.v) + [self.flag.dim()]
+
+    def map_choices(self, f) -> ChoiceMap:
+        return f(self)
+
+    def get_inner_map(self, addr) -> ChoiceMap:
+        if isinstance(addr, str):
+            return _empty
+        flag = self.flag if self.flag.dim() == 0 else _index_value(self.flag, self.flag.dim() - 1, addr)
+        return FlaggedChoice(_index_value(self.v, self.batched, addr), flag, self.batched)
+
+    def at_lanes(self, lanes: torch.Tensor) -> ChoiceMap:
+        v, depth = _as_lanes(self.v, self.batched, lanes.shape[0], "a stacked choice")
+        return FlaggedChoice(v, _deeper(self.flag), depth)
+
+
+@Pytree.dataclass
+class Indexed(ChoiceMap):
+    """A choice map nested under an index: a scalar (the sub-map lives at
+    that one index) or a 1-d tensor pairing each row of the sub-map's
+    leaves (along their first axis past the batch axes) with an index."""
+
+    c: ChoiceMap
+    addr: Any
+
+    @staticmethod
+    def build(chm: ChoiceMap, addr) -> ChoiceMap:
+        if isinstance(addr, slice):
+            if addr != _full_slice:
+                raise ValueError(f"Only the full slice [:] may address an Indexed node; got {addr!r}.")
+            return chm
+        if chm.static_is_empty() or (isinstance(addr, torch.Tensor) and addr.shape == (0,)):
+            return _empty
+        return Indexed(chm, addr)
+
+    def _fans_out(self) -> bool:
+        return isinstance(self.addr, torch.Tensor) and self.addr.dim() == 1
+
+    def filter(self, selection: Selection) -> ChoiceMap:
+        return self.c.filter(selection).extend(self.addr)
+
+    def get_value(self) -> Any:
+        return None
+
+    def batched_leaves(self) -> list[int]:
+        return self.c.batched_leaves() + [0]
+
+    def map_choices(self, f) -> ChoiceMap:
+        return Indexed(self.c.map_choices(f), self.addr)
+
+    def get_inner_map(self, addr) -> ChoiceMap:
+        if isinstance(addr, str):
+            return _empty
+        if isinstance(addr, slice) or (isinstance(addr, torch.Tensor) and addr.dim() > 0):
+            raise ValueError(f"An Indexed node answers scalar lookups only; got {addr!r}.")
+        if not self._fans_out():
+            mine, theirs = _host_int(self.addr), _host_int(addr)
+            if mine is not None and theirs is not None:
+                return self.c if mine == theirs else _empty
+            return self.c.flag_lanes(torch.as_tensor(self.addr == addr))
+        # First hit among the stored indices: compare, take the winning
+        # row, and hold only if there was one. No host read.
+        hits = self.addr == addr
+        row = torch.argmax(hits.to(torch.int8))
+        found = hits.any()
+        return self.c.map_choices(
+            lambda c: FlaggedChoice(_index_value(c.v, c.batched, row), _and(found, True if c.get_flag() is None else c.get_flag()), c.batched)
+        )
+
+    def at_lanes(self, lanes: torch.Tensor) -> ChoiceMap:
+        n = lanes.shape[0]
+        if not self._fans_out():
+            inner = self.c.map_choices(lambda c: _relabel(c, *_one_lane(c.v, c.batched)))
+            return inner.flag_lanes(lanes == self.addr)
+        idx = self.addr.to(lanes.device)
+        held = torch.zeros(n, dtype=torch.bool, device=lanes.device).index_fill_(0, idx, True)
+
+        def scatter(c):
+            if c.get_flag() is not None:
+                raise NotImplementedError("an index tensor over choices that hold in some lanes only")
+            v, d = c.v, c.batched
+            full = v.new_zeros(v.shape[:d] + (n,) + v.shape[d + 1 :]).index_copy_(d, idx, v)
+            return FlaggedChoice(full, held, d + 1)
+
+        return self.c.map_choices(scatter)
+
+
+def _relabel(c, v, depth: int):
+    """`c` holding `v` at `depth` instead, one lane level further in."""
+    if isinstance(c, FlaggedChoice):
+        return FlaggedChoice(v, _deeper(c.flag), depth)
+    return Choice(v, depth)
 
 
 @Pytree.dataclass
@@ -318,14 +783,26 @@ class Static(ChoiceMap):
     def get_value(self) -> Any:
         return None
 
-    def get_inner_map(self, addr: str) -> ChoiceMap:
-        return self.children.get(addr, _empty)
+    def get_inner_map(self, addr) -> ChoiceMap:
+        if isinstance(addr, str):
+            return self.children.get(addr, _empty)
+        return Static.build({k: sub.get_inner_map(addr) for k, sub in self.children.items()})
+
+    def at_lanes(self, lanes: torch.Tensor) -> ChoiceMap:
+        return Static.build({k: sub.at_lanes(lanes) for k, sub in self.children.items()})
 
     def static_is_empty(self) -> bool:
         return not self.children
 
-    def batched_leaves(self) -> list[bool]:
+    def batched_leaves(self) -> list[int]:
         return [b for sub in self.children.values() for b in sub.batched_leaves()]
+
+    def map_choices(self, f) -> ChoiceMap:
+        return Static.build({k: sub.map_choices(f) for k, sub in self.children.items()})
+
+
+def _is_leaf_choice(c) -> bool:
+    return isinstance(c, (Choice, FlaggedChoice))
 
 
 @Pytree.dataclass
@@ -346,8 +823,16 @@ class Or(ChoiceMap):
             for k, sub in c2.children.items():
                 merged[k] = merged[k] | sub if k in merged else sub
             return Static.build(merged)
-        if isinstance(c1, Choice) and isinstance(c2, Choice):
+        if isinstance(c1, Choice) and _is_leaf_choice(c2):
             return c1
+        if isinstance(c1, FlaggedChoice) and _is_leaf_choice(c2):
+            # The left value where it holds, else the right one; the union
+            # holds where either does.
+            f1, f2 = c1.flag, c2.get_flag()
+            depth = max(c1.batched, c2.batched)
+            v1, v2 = _to_depth(c1.v, c1.batched, depth), _to_depth(c2.v, c2.batched, depth)
+            v = torch.where(f1.reshape(f1.shape + (1,) * (max(v1.dim(), v2.dim()) - depth)), v1, v2)
+            return Choice(v, depth) if f2 is None else FlaggedChoice(v, f1 | f2, depth)
         return Or(c1, c2)
 
     def filter(self, selection: Selection) -> ChoiceMap:
@@ -357,14 +842,32 @@ class Or(ChoiceMap):
         left = self.c1.get_value()
         return self.c2.get_value() if left is None else left
 
-    def value_is_batched(self) -> bool:
-        return (self.c1 if self.c1.has_value() else self.c2).value_is_batched()
+    def _holder(self) -> ChoiceMap:
+        return self.c1 if self.c1.has_value() else self.c2
 
-    def batched_leaves(self) -> list[bool]:
+    def value_is_batched(self) -> int:
+        return self._holder().value_is_batched()
+
+    def get_flag(self):
+        return self._holder().get_flag()
+
+    def batched_leaves(self) -> list[int]:
         return self.c1.batched_leaves() + self.c2.batched_leaves()
 
-    def get_inner_map(self, addr: str) -> ChoiceMap:
+    def map_choices(self, f) -> ChoiceMap:
+        return Or.build(self.c1.map_choices(f), self.c2.map_choices(f))
+
+    def get_inner_map(self, addr) -> ChoiceMap:
         return self.c1.get_inner_map(addr) | self.c2.get_inner_map(addr)
+
+    def at_lanes(self, lanes: torch.Tensor) -> ChoiceMap:
+        return self.c1.at_lanes(lanes) | self.c2.at_lanes(lanes)
+
+
+def _to_depth(v: torch.Tensor, depth: int, target: int) -> torch.Tensor:
+    """`v` (carrying the innermost `depth` batch axes) shaped to broadcast
+    against values of the same event shape that carry `target` of them."""
+    return v if depth in (0, target) else v.reshape((1,) * (target - depth) + v.shape)
 
 
 _empty = Static({})

@@ -42,5 +42,15 @@ class PrimitiveEditRequest(EditRequest):
         return tr.get_gen_fn().edit(rng, tr, self, argdiffs)
 
 
+@Pytree.dataclass
+class IndexRequest(PrimitiveEditRequest):
+    """Request an edit at one index of a vector combinator's trace (one
+    lane of a `Vmap`, one step of a `Scan`): slice, edit, scatter, instead
+    of a full pass. `idx` is a Python int or a 0-d integer tensor."""
+
+    idx: Any
+    request: EditRequest
+
+
 class NotSupportedEditRequest(Exception):
     pass

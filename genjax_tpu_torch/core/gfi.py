@@ -2,8 +2,10 @@
 
 Counterpart of `genjax_tpu/core/gfi.py`: `simulate`, `assess`, `generate`
 and `importance`; `project`, `edit` and `update` with the `Update` edit
-request (`Regenerate` and `EmptyRequest` are in `core/requests.py`). The
-postfix combinators come later.
+request (`Regenerate` and `EmptyRequest` are in `core/requests.py`), and
+the postfix combinators (`gen_fn.vmap(in_axes=...)`, `.scan(n=...)`,
+`.repeat(n=...)`, `.map(f)`, ...; `switch`, `mask`, `mix` and `or_else`
+come later).
 
 Where JAX takes a PRNG key, these methods take a `torch.Generator` (on
 the CPU or on a CUDA device); the sites of a model draw from it in
@@ -12,7 +14,9 @@ an optional particle count `n`: the model body runs once, on tensors with
 a leading particle axis of length `n`, while the model's arguments and
 constrained values are stored once, unbatched. Each trace records which
 of its leaves carry the particle axis (`Trace.batched_leaves`); an edit
-reads the particle count from that record and keeps it.
+reads the particle count from that record and keeps it. Under a `Vmap`
+the kernel's methods get the whole stack of batch axes as `n` (a tuple),
+and the record of a leaf is its depth (`core/typing.py`).
 """
 
 from typing import Generic, TypeVar
@@ -68,11 +72,37 @@ class Trace(Generic[R], Pytree):
         axis."""
         raise NotImplementedError
 
+    def retval_record(self) -> list[int]:
+        """For each leaf of the return value, its depth."""
+        raise NotImplementedError
+
+    def drop_level(self, r: int = 0) -> "Trace[R]":
+        """The same trace with the record of what it becomes once one
+        index has been taken along a batch level from every leaf that
+        carries it: the level with `r` levels to its right (0: the
+        innermost)."""
+        raise NotImplementedError
+
+    def add_gap(self, k: int = 1) -> "Trace[R]":
+        """The same trace as a `Scan` holds it stacked: `k` more step axes
+        sit between each leaf's batch axes and the rest, which only a
+        `VmapTrace` (whose lane axes come right after) has to know."""
+        return self
+
     def as_single(self) -> "Trace[R]":
         """The same trace with a record that says no leaf carries the
         particle axis: what a trace becomes once one particle's row has
         been taken from every per-particle leaf."""
-        raise NotImplementedError
+        return self.drop_level(0)
+
+    def get_subtrace(self, *addresses) -> "Trace":
+        tr = self
+        for addr in addresses:
+            tr = tr.get_inner_trace(addr)
+        return tr
+
+    def get_inner_trace(self, address) -> "Trace":
+        raise NotImplementedError("This type of Trace object does not possess subtraces.")
 
     def particle_count(self) -> int | None:
         """The length of the particle axis, read from the record; None for
@@ -158,9 +188,10 @@ class GenerativeFunction(Generic[R], Pytree):
         constraint: ChoiceMap,
         args: Arguments,
         n: int | None = None,
+        like: Trace[R] | None = None,
     ) -> tuple[Trace[R], Weight]:
         """Alias for `generate` (Gen's traditional name)."""
-        return self.generate(rng, constraint, args, n)
+        return self.generate(rng, constraint, args, n, like)
 
     def project(self, rng: torch.Generator, trace: Trace[R], selection: Selection) -> Weight:
         """The part of the trace's score that the selected addresses
@@ -173,10 +204,12 @@ class GenerativeFunction(Generic[R], Pytree):
         trace: Trace[R],
         edit_request: EditRequest,
         argdiffs: Argdiffs,
+        n: "int | tuple | None" = None,
     ) -> tuple[Trace[R], Weight, Retdiff, EditRequest]:
         """Respond to an SMCP3 edit request: the new trace, the incremental
         weight, the retdiff and the backward request. The new trace keeps
-        the old one's particle-axis record."""
+        the old one's particle-axis record. `n` is the batch of the
+        enclosing trace, where there is one."""
         raise NotImplementedError
 
     def update(
@@ -206,6 +239,84 @@ class GenerativeFunction(Generic[R], Pytree):
         """
         tr, w, rd, bwd = Update(constraint).edit(rng, trace, argdiffs)
         return tr, w, rd, bwd.constraint
+
+    # -- postfix combinators ----------------------------------------------------
+
+    def vmap(self, /, *, in_axes=0) -> "GenerativeFunction":
+        """`genjax_tpu_torch.vmap(in_axes=in_axes)(self)`: one run of this
+        function for every index of the mapped arguments' axis.
+
+        >>> import torch
+        >>> import genjax_tpu_torch as gx
+        >>> @gx.gen
+        ... def datum(x, w):
+        ...     return gx.normal(x * w, 1.0) @ "y"
+        >>> batched = datum.vmap(in_axes=(0, None))
+        >>> tr = batched.simulate(torch.Generator().manual_seed(0), (torch.arange(3.0), 2.0), n=5)
+        >>> tr.get_choices()["y"].shape, tr.get_choices()[1, "y"].shape, tr.get_score().shape
+        (torch.Size([5, 3]), torch.Size([5]), torch.Size([5]))
+        """
+        from genjax_tpu_torch.combinators.vmap import Vmap
+
+        return Vmap(self, in_axes)
+
+    def repeat(self, /, *, n: int) -> "GenerativeFunction":
+        """`a -> b` becomes `a -> [b]`: `n` independent runs."""
+        from genjax_tpu_torch.combinators.compose import RepeatCombinator
+
+        return RepeatCombinator(self, n=n)
+
+    def scan(self, /, *, n: int | None = None) -> "GenerativeFunction":
+        """`(c, a) -> (c, b)` becomes `(c, [a]) -> (c, [b])`.
+
+        >>> import torch
+        >>> import genjax_tpu_torch as gx
+        >>> @gx.gen
+        ... def step(x, _):
+        ...     y = gx.normal(x, 1.0) @ "x"
+        ...     return y, y
+        >>> tr = step.scan(n=4).simulate(torch.Generator().manual_seed(0), (0.0, None), n=6)
+        >>> tr.get_choices()["x"].shape, tr.get_choices()[3, "x"].shape, tr.get_retval()[1].shape
+        (torch.Size([6, 4]), torch.Size([6]), torch.Size([6, 4]))
+        """
+        from genjax_tpu_torch.combinators.scan import Scan
+
+        return Scan(self, n)
+
+    def accumulate(self) -> "GenerativeFunction":
+        from genjax_tpu_torch.combinators.scan import accumulate
+
+        return accumulate()(self)
+
+    def reduce(self) -> "GenerativeFunction":
+        from genjax_tpu_torch.combinators.scan import reduce
+
+        return reduce()(self)
+
+    def iterate(self, /, *, n: int) -> "GenerativeFunction":
+        from genjax_tpu_torch.combinators.scan import iterate
+
+        return iterate(n=n)(self)
+
+    def iterate_final(self, /, *, n: int) -> "GenerativeFunction":
+        from genjax_tpu_torch.combinators.scan import iterate_final
+
+        return iterate_final(n=n)(self)
+
+    def dimap(self, /, *, pre=lambda *args: args, post=lambda args, xformed, retval: retval, info=None):
+        from genjax_tpu_torch.combinators.dimap import Dimap
+
+        return Dimap(self, pre, post, info)
+
+    def map(self, f, *, info=None) -> "GenerativeFunction":
+        from genjax_tpu_torch.combinators.dimap import map as _map
+
+        return _map(f, info=info)(self)
+
+    def contramap(self, f, *, info=None) -> "GenerativeFunction":
+        from genjax_tpu_torch.combinators.dimap import contramap
+
+        return contramap(f, info=info)(self)
 
 
 @Pytree.dataclass

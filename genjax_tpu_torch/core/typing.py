@@ -1,5 +1,5 @@
-"""Type aliases, the default dtype, device helpers, and the particle-axis
-record (`PerParticle`).
+"""Type aliases, the default dtype, device helpers, and the batch-axis
+record (`PerParticle` and the deeper marks).
 
 Counterpart of `genjax_tpu/core/typing.py`. float32 is the default real
 type, as in JAX without x64. Python numbers stay Python numbers where a
@@ -63,7 +63,43 @@ class PerParticle(torch.Tensor):
     (`Trace.batched_leaves`). A caller marks a per-particle argument or
     choice value with `per_particle`; anything unmarked (an argument, a
     constraint, a value computed only from them) is shared by every
-    particle and stored once."""
+    particle and stored once.
+
+    Under a `Vmap` the body runs under a stack of batch axes: the particle
+    axis, then one lane axis per enclosing `Vmap`, always leading, in that
+    order. A value's record is its depth: how many of those axes it
+    carries, counted from the innermost (so a depth-1 value under the
+    stack `(K, N)` is `(N, *event)`, shared by the particles, and a
+    depth-2 value is `(K, N, *event)`, or `(K, 1, *event)` where it is the
+    same in every lane: a batch axis of length 1 under a longer level
+    stands for "the same in every lane"). `PerParticle` is the mark of
+    depth 1; each deeper mark is a subclass of the one before, so PyTorch's
+    own dispatch gives the result of an operation its deepest operand's
+    mark, at no cost in Python."""
+
+    _depth = 1
+
+
+_MARKS: list[type] = [torch.Tensor, PerParticle]
+MAX_DEPTH = 4
+for _d in range(2, MAX_DEPTH + 1):
+    _MARKS.append(type(f"Batched{_d}", (_MARKS[-1],), {"_depth": _d, "__doc__": f"The mark of depth {_d}."}))
+
+
+def depth_of(x: Any) -> int:
+    """How many leading batch axes `x` is marked as carrying (0: shared)."""
+    return getattr(type(x), "_depth", 0) if isinstance(x, PerParticle) else 0
+
+
+def mark(x: Any, depth: int) -> Any:
+    """`x` marked as carrying `depth` leading batch axes (a view, no
+    copy); values that are no tensors, and depth 0, pass through."""
+    if not depth or not isinstance(x, torch.Tensor):
+        return x
+    if depth > MAX_DEPTH:
+        raise ValueError(f"at most {MAX_DEPTH - 1} nested Vmaps under a particle axis")
+    cls = _MARKS[depth]
+    return x if type(x) is cls else plain(x).as_subclass(cls)
 
 
 def per_particle(x: torch.Tensor) -> torch.Tensor:
@@ -83,27 +119,39 @@ def is_per_particle(x: Any) -> bool:
 
 
 def plain(x: Any) -> Any:
-    """`x` with the `PerParticle` mark taken off (a view); other values
-    pass through."""
+    """`x` with its batch mark taken off (a view); other values pass
+    through."""
     if not isinstance(x, PerParticle):
         return x
     with DisableTorchFunctionSubclass():
         return x.as_subclass(torch.Tensor)
 
 
-def sample_shape(n: int | None, *params: Any) -> torch.Size:
+def batch_dims(n: "int | tuple | None") -> tuple:
+    """The batch stack a method runs under, as a tuple of axis lengths:
+    `None` is no batch axis, an int the particle axis alone, a tuple the
+    stack as a `Vmap` hands it on."""
+    if n is None:
+        return ()
+    return n if isinstance(n, tuple) else (n,)
+
+
+def sample_shape(n: "int | tuple | None", *params: Any) -> torch.Size:
     """The shape of one site's draw: the broadcast of its parameters'
-    per-particle shapes, with the particle axis of length `n` prepended
-    when `n` is given. A `PerParticle` parameter contributes its shape
-    without the leading axis; any other parameter is shared.
+    per-particle shapes, with the batch axes `n` prepended (an int: the
+    particle axis of that length; a tuple: the stack under a `Vmap`). A
+    marked parameter contributes its shape without its batch axes; any
+    other parameter is shared.
 
     >>> import torch
-    >>> from genjax_tpu_torch.core.typing import per_particle, sample_shape
+    >>> from genjax_tpu_torch.core.typing import mark, per_particle, sample_shape
     >>> tuple(sample_shape(8, torch.zeros(3), 1.0)), tuple(sample_shape(8, per_particle(torch.zeros(8))))
     ((8, 3), (8,))
+    >>> tuple(sample_shape((8, 5), mark(torch.zeros(8, 1, 3), 2), torch.zeros(3)))
+    (8, 5, 3)
     """
     shapes = [
-        p.shape[1:] if isinstance(p, PerParticle) else p.shape
+        p.shape[p._depth :] if isinstance(p, PerParticle) else p.shape
         for p in params
         if isinstance(p, torch.Tensor)
     ]
@@ -113,4 +161,6 @@ def sample_shape(n: int | None, *params: Any) -> torch.Size:
         base = shapes[0] if shapes else torch.Size()
     else:
         base = torch.broadcast_shapes(*shapes)
-    return base if n is None else torch.Size((n, *base))
+    if n is None:
+        return base
+    return torch.Size((n, *base)) if isinstance(n, int) else torch.Size((*n, *base))

@@ -4,9 +4,15 @@ from genjax_tpu_torch.distributions.distribution import (
     ExactDensity,
     exact_density,
 )
+from genjax_tpu_torch.distributions.discrete_hmm import (
+    DiscreteHMM,
+    DiscreteHMMConfiguration,
+    forward_filtering_backward_sampling,
+)
 from genjax_tpu_torch.distributions.library import (
     bernoulli,
     beta,
+    categorical,
     flip,
     mv_normal_diag,
     normal,
@@ -14,13 +20,17 @@ from genjax_tpu_torch.distributions.library import (
 )
 
 __all__ = [
+    "DiscreteHMM",
+    "DiscreteHMMConfiguration",
     "Distribution",
     "DistributionTrace",
     "ExactDensity",
     "bernoulli",
     "beta",
+    "categorical",
     "exact_density",
     "flip",
+    "forward_filtering_backward_sampling",
     "mv_normal_diag",
     "normal",
     "uniform",

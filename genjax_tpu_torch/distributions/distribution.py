@@ -8,13 +8,19 @@ probability interface (`random_weighted` / `estimate_logpdf`) with
 
 A site's value may be a scalar or a tensor per particle. Its score is,
 per particle, the JAX score: the logpdf summed over every axis of that
-particle's value (`site_score`). With a particle axis, the value's record
-(`DistributionTrace.batched`) says whether it carries the axis; which of
-the parameters carry it follows from rank: a parameter with more axes
-than one particle's value does. So a model body keeps the particle axis
-in front and writes a per-particle parameter with as many axes as the
-site's value (`loc[:, None]` for a per-particle scalar against a vector
-site), which plain broadcasting needs anyway.
+particle's value (`site_score`). With batch axes (the particle axis, and
+under a `Vmap` one lane axis per level: `core/typing.py`), the value's
+record (`DistributionTrace.batched`) is its depth, the number of batch
+axes it carries; the depth of a parameter follows from rank: the axes it
+has beyond those of one particle's value (plus `param_event_extra`, for a
+parameter like `categorical`'s logits that has an axis the value lacks).
+The score keeps every batch axis, so under a `Vmap` there is one score per
+lane. So a model body keeps the batch axes in front, writes a batched
+parameter with as many event axes as the site's value (`loc[:, None]` for
+a per-particle scalar against a vector site), which plain broadcasting
+needs anyway, and reduces with negative axes (`x.sum(-1)`, `w @ X.mT`),
+never with `dim=0` or a bare `.sum()`: then the same body runs for one
+particle, for K, and as a `Vmap` kernel for K particles times N lanes.
 """
 
 from typing import Any, Callable, Generic, TypeVar
@@ -28,7 +34,7 @@ from genjax_tpu_torch.core.diff import Diff
 from genjax_tpu_torch.core.gfi import GenerativeFunction, Trace, Update
 from genjax_tpu_torch.core.pytree import Pytree, n_leaves
 from genjax_tpu_torch.core.requests import EmptyRequest, Regenerate
-from genjax_tpu_torch.core.typing import as_value, device_of, per_particle, plain
+from genjax_tpu_torch.core.typing import as_value, device_of, mark, plain
 
 R = TypeVar("R")
 
@@ -37,23 +43,39 @@ def _rank(x: Any) -> int:
     return x.dim() if isinstance(x, torch.Tensor) else 0
 
 
-def params_batched(args: tuple, event_rank: int) -> list[bool]:
+def _drop(depth: int, r: int) -> int:
+    """A leaf's depth once the batch level with `r` levels to its right is
+    gone: leaves that carried it lose one."""
+    return depth - 1 if depth > r else depth
+
+
+def params_batched(args: tuple, event_rank: int, extra: Any = 0) -> list[int]:
     """For each of a site's parameters (a flat tuple of tensors, numbers
-    or None: each one leaf), whether it carries the particle axis: a
-    tensor with more axes than one particle's value."""
-    return [_rank(p) > event_rank for p in args]
+    or None: each one leaf), its depth: how many batch axes it carries,
+    which is the number of axes it has beyond those of one particle's
+    value (`event_rank`, plus `extra` for that parameter)."""
+    if isinstance(extra, int):
+        base = event_rank + extra
+        return [p.dim() - base if isinstance(p, torch.Tensor) and p.dim() > base else 0 for p in args]
+    return [max(_rank(p) - event_rank - e, 0) for p, e in zip(args, extra)]
 
 
-def site_score(density: Any, value: Any, batched: bool, args: tuple) -> Score:
-    """A site's score from its elementwise log density: summed over every
-    axis but the particle axis, which the density carries when the value
-    or a parameter does."""
-    if _rank(density) == 0:
-        return density
-    keep = 1 if batched else int(any(params_batched(args, _rank(value))))
-    if density.dim() == keep:
+def site_score(density: Any, value: Any, batched: int, args: tuple, extra: Any = 0) -> Score:
+    """A site's score from its elementwise log density: summed over the
+    event axes only. The density carries as many batch axes as the deepest
+    of the value and the parameters."""
+    if _rank(density) <= batched:
+        return density  # a scalar, or nothing but the value's own batch axes
+    keep = max(int(batched), *params_batched(args, _rank(value) - batched, extra), 0)
+    if density.dim() <= keep:
         return density
     return density.sum(dim=tuple(range(keep, density.dim())))
+
+
+def _on_value(flag: torch.Tensor, value: torch.Tensor, depth: int) -> torch.Tensor:
+    """A flag over the batch axes (aligned to the innermost) shaped to
+    select whole events of `value`, which carries `depth` batch axes."""
+    return flag.reshape(flag.shape + (1,) * (value.dim() - depth))
 
 
 @Pytree.dataclass
@@ -62,7 +84,7 @@ class DistributionTrace(Generic[R], Trace[R]):
     args: tuple
     value: R
     score: Score
-    batched: bool = Pytree.static(default=False)  # the value carries the particle axis
+    batched: int = Pytree.static(default=0)  # the value's depth: how many batch axes it carries
 
     def get_args(self) -> tuple:
         return self.args
@@ -79,14 +101,18 @@ class DistributionTrace(Generic[R], Trace[R]):
     def get_choices(self) -> ChoiceMap:
         return ChoiceMap.choice(self.value, self.batched)
 
-    def args_record(self) -> list[bool]:
-        return params_batched(self.args, _rank(self.value) - self.batched)
+    def args_record(self) -> list[int]:
+        return params_batched(self.args, _rank(self.value) - self.batched, self.gen_fn.param_event_extra)
 
-    def batched_leaves(self) -> list[bool]:
+    def retval_record(self) -> list[int]:
+        return [self.batched] * n_leaves(self.value)
+
+    def batched_leaves(self) -> list[int]:
         args = self.args_record()
-        score = self.batched or any(args)
+        # The score carries every batch axis that the value or a parameter does.
+        score = min(max(self.batched, *args, 0), _rank(self.score))
         return (
-            [False] * n_leaves(self.gen_fn)
+            [0] * n_leaves(self.gen_fn)
             + args
             + [self.batched] * n_leaves(self.value)
             + [score] * n_leaves(self.score)
@@ -95,10 +121,17 @@ class DistributionTrace(Generic[R], Trace[R]):
     def as_single(self) -> "DistributionTrace[R]":
         return DistributionTrace(self.gen_fn, self.args, self.value, self.score)
 
+    def drop_level(self, r: int = 0) -> "DistributionTrace[R]":
+        return DistributionTrace(self.gen_fn, self.args, self.value, self.score, _drop(self.batched, r))
+
 
 class Distribution(Generic[R], GenerativeFunction[R]):
     """Generative functions over a single (unaddressed) choice, specified by
     the stochastic probability interface."""
+
+    # How many axes a parameter has that one particle's value lacks: 0, or
+    # one number per parameter (`categorical`: the axis over categories).
+    param_event_extra: Any = 0
 
     def random_weighted(
         self, rng: torch.Generator, *args, n: int | None = None
@@ -123,45 +156,66 @@ class Distribution(Generic[R], GenerativeFunction[R]):
         with DisableTorchFunctionSubclass():
             return self.estimate_logpdf(rng, v, *args)
 
-    def _trace(self, args: tuple, value, density, batched: bool) -> DistributionTrace[R]:
+    def _trace(self, args: tuple, value, density, batched: int) -> DistributionTrace[R]:
         """The trace of a site: `value` and `density` are plain tensors
         (`_draw`, `_density`); the parameters lose their marks."""
-        score = site_score(density, value, batched, args)
-        return DistributionTrace(self, tuple(plain(a) for a in args), value, score, batched)
+        score = site_score(density, value, batched, args, self.param_event_extra)
+        return DistributionTrace(self, tuple(plain(a) for a in args), value, score, int(batched))
 
     def simulate(self, rng, args, n=None) -> Trace[R]:
         w, v = self._draw(rng, args, n)
-        return self._trace(args, v, w, n is not None)
+        return self._trace(args, v, w, len(n) if isinstance(n, tuple) else n is not None)
+
+    def _fresh(self, rng, args, n, like):
+        """A fresh draw `(density, value)`; with `like`, the parameters
+        carry the batch axes that `like`'s do."""
+        if like is not None:
+            args = tuple(mark(a, b) if b else a for a, b in zip(args, like.args_record()))
+        return self._draw(rng, args, n)
 
     def generate(self, rng, constraint, args, n=None, like=None) -> tuple[Trace[R], Weight]:
         """With `like`, the parameters that carry the particle axis are those
         of `like`'s (plain tensors here are marked for the draw)."""
         held = constraint.get_value()
+        depth = len(n) if isinstance(n, tuple) else n is not None
         if held is None:
             # Unconstrained: fresh draw, importance weight 1.
-            if like is None:
-                return self.simulate(rng, args, n), torch.zeros((), device=rng.device)
-            marked = tuple(per_particle(a) if b else a for a, b in zip(args, like.args_record()))
-            w, v = self._draw(rng, marked, n)
-            return self._trace(args, v, w, n is not None), torch.zeros((), device=rng.device)
+            w, v = self._fresh(rng, args, n, like)
+            return self._trace(args, v, w, depth), torch.zeros((), device=rng.device)
+        held = as_value(held, rng.device)
+        flag = constraint.get_flag()
+        if flag is not None:
+            # Constrained in some lanes only: those hold the constraint and
+            # weigh its density, the others a fresh draw and weigh nothing.
+            _, fresh = self._fresh(rng, args, n, like)
+            v = torch.where(_on_value(flag, fresh, depth), held.to(fresh.dtype), fresh)
+            tr = self._trace(args, v, self._density(rng, v, args), depth)
+            return tr, torch.where(flag, tr.score, 0.0)
         # Constrained: the value is the constraint, stored as given (shared
         # unless it was marked per particle); the weight is its density.
-        held = as_value(held, rng.device)
         tr = self._trace(args, held, self._density(rng, held, args), constraint.value_is_batched())
         return tr, tr.score
 
-    def assess(self, sample: ChoiceMap, args: tuple, n=None) -> tuple[Score, R]:
+    def assess(self, sample: ChoiceMap, args: tuple, n=None, marked: bool = False) -> tuple[Score, R]:
+        """With `marked`, the value comes back with the mark of its depth
+        (for a body that hands it on to a `Vmap`)."""
         held = sample.get_value()
         if held is None:
             raise ValueError(f"assess of {type(self).__name__}: the sample holds no value.")
+        if sample.get_flag() is not None:
+            raise ValueError(f"assess of {type(self).__name__}: the sample holds a value in some lanes only.")
         held = as_value(held, device_of(*args))
-        score = site_score(self._density(None, held, args), held, sample.value_is_batched(), args)
-        return score, held
+        batched = sample.value_is_batched()
+        score = site_score(self._density(None, held, args), held, batched, args, self.param_event_extra)
+        return score, mark(held, batched) if marked else held
 
     def project(self, rng, trace, selection: Selection) -> Weight:
-        if selection.check():
+        chosen = selection.check()
+        if chosen is True:
             return trace.get_score()
-        return torch.zeros((), device=device_of(trace.get_score()))
+        if chosen is False:
+            return torch.zeros((), device=device_of(trace.get_score()))
+        return torch.where(chosen, trace.get_score(), 0.0)
 
     # -- edits -------------------------------------------------------------------
 
@@ -189,15 +243,28 @@ class Distribution(Generic[R], GenerativeFunction[R]):
             discard, retdiff = ChoiceMap.empty(), Diff.no_change(winner)
         else:
             winner = as_value(proposed, device_of(trace.value, trace.score))
+            if isinstance(trace.value, torch.Tensor):
+                winner = winner.to(trace.value.dtype)  # a Python 2 for an integer site stays an index
             batched = constraint.value_is_batched()
-            if batched and not trace.batched:
+            flag = constraint.get_flag()
+            if batched > trace.batched:
                 raise ValueError(
                     "Update: a per-particle value for a site that every particle shares; "
                     "an edit keeps the trace's particle-axis record."
                 )
-            if trace.batched and not batched:
-                winner, batched = winner.expand(trace.value.shape[0], *winner.shape), True
-            discard, retdiff = trace.get_choices(), Diff.unknown_change(winner)
+            if flag is not None:
+                # The lanes that the constraint holds take its value.
+                if flag.dim() > trace.batched:
+                    raise ValueError("Update: a value for some lanes of a site that every lane shares")
+                winner = torch.where(_on_value(flag, trace.value, trace.batched), winner, trace.value)
+                batched = trace.batched
+                discard = ChoiceMap.flagged(trace.value, flag, trace.batched)
+            else:
+                if trace.batched > batched:
+                    lead = trace.value.shape[: trace.batched - batched]
+                    winner, batched = winner.expand(*lead, *winner.shape), trace.batched
+                discard = trace.get_choices()
+            retdiff = Diff.unknown_change(winner)
         new = self._trace(new_args, winner, self._density(rng, winner, new_args), batched)
         return new, new.score - trace.score, retdiff, Update(discard)
 
@@ -208,15 +275,17 @@ class Distribution(Generic[R], GenerativeFunction[R]):
         is kept and re-scored."""
         new_args = Diff.tree_primal(argdiffs)
         held = trace.value
-        if not selection.check():
+        chosen = selection.check()
+        if chosen is False:
             new = self._trace(new_args, held, self._density(rng, held, new_args), trace.batched)
             return new, new.score - trace.score, Diff.no_change(held), Update(ChoiceMap.empty())
         if trace.batched:
             # The record of the old value says which parameters carry the
-            # particle axis; marking them draws one value per particle.
-            event_rank = _rank(held) - 1
-            marked = tuple(per_particle(a) if _rank(a) > event_rank else a for a in new_args)
-            w, v = self._draw(rng, marked, held.shape[0])
+            # batch axes; marking them draws one value per particle and lane.
+            depths = params_batched(new_args, _rank(held) - trace.batched, self.param_event_extra)
+            marked = tuple(mark(a, d) for a, d in zip(new_args, depths))
+            dims = tuple(held.shape[: trace.batched])
+            w, v = self._draw(rng, marked, dims[0] if len(dims) == 1 else dims)
         elif n is not None:
             raise NotImplementedError(
                 "Regenerate of a value that every particle shares (an observation) "
@@ -224,6 +293,10 @@ class Distribution(Generic[R], GenerativeFunction[R]):
             )
         else:
             w, v = self._draw(rng, new_args, None)
+        if chosen is not True:
+            # Selected in some lanes only: the others keep their value.
+            v = torch.where(_on_value(chosen, v, trace.batched), v, held)
+            w = self._density(rng, v, new_args)
         new = self._trace(new_args, v, w, trace.batched)
         return new, new.score - trace.score, Diff.unknown_change(new.value), Update(trace.get_choices())
 

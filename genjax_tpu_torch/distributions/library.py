@@ -1,7 +1,7 @@
-"""The distributions of the particle and MCMC paths: `normal`, `uniform`,
-`beta`, `flip`, `bernoulli` and `mv_normal_diag`.
+"""The distributions of the particle, MCMC and combinator paths: `normal`,
+`uniform`, `beta`, `flip`, `bernoulli`, `categorical` and `mv_normal_diag`.
 
-Counterpart of the same six in `genjax_tpu/distributions/library.py`,
+Counterpart of the same seven in `genjax_tpu/distributions/library.py`,
 with their parameterizations and support semantics: a value outside the
 support scores exactly `-inf` (`_guard_support`). Samplers draw from a
 `torch.Generator` on the generator's device. Parameters may be scalars or
@@ -177,6 +177,62 @@ class Bernoulli(ExactDensity):
 bernoulli = Bernoulli()
 
 
+# -- categorical -----------------------------------------------------------
+
+
+@Pytree.dataclass
+class Categorical(ExactDensity):
+    """Categorical over `0..n-1` (int64 draws), parameterized by `logits=`
+    (unnormalized) or `probs=` along the last axis; a bare positional
+    parameter is logits. One Gumbel-argmax draw per row of logits; a value
+    outside `0..n-1` scores `-inf` (an index would otherwise wrap).
+
+    >>> import torch
+    >>> from genjax_tpu_torch.distributions.library import categorical
+    >>> lp = categorical.logpdf(torch.tensor([0, 2, 3, -1]), logits=torch.zeros(3))
+    >>> [round(x, 4) for x in lp.tolist()]
+    [-1.0986, -1.0986, -inf, -inf]
+    """
+
+    # The parameters have one axis (over the categories) that a value lacks.
+    param_event_extra = (1, 1)
+
+    def __call__(self, *args, logits=None, probs=None) -> GenerativeFunctionClosure:
+        if args:
+            logits = args[0]
+        return GenerativeFunctionClosure(self, (logits, probs))
+
+    def sample(self, rng, logits=None, probs=None, n=None):
+        if logits is None:
+            logits = log(probs)
+        # argmax(logits + Gumbel), the Gumbel noise as -log of an Exp(1) draw.
+        e = torch.empty(sample_shape(n, logits), device=rng.device).exponential_(generator=rng)
+        return torch.argmax(logits - torch.log(e), dim=-1)
+
+    def logpdf(self, v, logits=None, probs=None):
+        if logits is None:
+            logits = log(probs)
+        v = torch.as_tensor(v, device=logits.device)
+        if v.is_floating_point():
+            whole = v == torch.floor(v)
+            v = torch.where(whole, v, -1.0).to(torch.int64)
+        else:
+            v = v.to(torch.int64)
+        n_cat = logits.shape[-1]
+        in_support = (v >= 0) & (v < n_cat)
+        vs = torch.where(in_support, v, 0)
+        if logits.dim() == 1:
+            picked = logits[vs]
+        else:
+            lead = torch.broadcast_shapes(vs.shape, logits.shape[:-1])
+            picked = torch.gather(logits.expand(*lead, n_cat), -1, vs.expand(lead).unsqueeze(-1)).squeeze(-1)
+        # log_softmax(logits)[v], without the normalized table.
+        return torch.where(in_support, picked - torch.logsumexp(logits, dim=-1), -math.inf)
+
+
+categorical = Categorical()
+
+
 # -- mv_normal_diag ----------------------------------------------------------
 
 
@@ -192,4 +248,4 @@ def _mv_normal_diag_logpdf(v, loc, scale_diag):
 mv_normal_diag = exact_density(_mv_normal_diag_sample, _mv_normal_diag_logpdf, "mv_normal_diag")
 
 
-__all__ = ["bernoulli", "beta", "flip", "mv_normal_diag", "normal", "uniform"]
+__all__ = ["bernoulli", "beta", "categorical", "flip", "mv_normal_diag", "normal", "uniform"]

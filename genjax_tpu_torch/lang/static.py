@@ -9,7 +9,9 @@ Every GFI method runs the model source directly, once, with a handler
 installed (see `lang/interop.py`). The sites draw from the method's
 `torch.Generator` in program order (JAX folds a per-site counter into its
 key instead). With a particle count `n`, the body runs once on tensors
-with a leading particle axis: no loop over particles. `simulate` and
+with a leading particle axis: no loop over particles (and under a `Vmap`,
+once for every particle and lane: `n` is then the stack of batch axes, and
+each record below is a depth, `core/typing.py`). `simulate` and
 `generate` hand the body every per-particle value as a `PerParticle`
 tensor, so that each site knows which of its parameters carry the axis,
 and record which leaves of the arguments and the return value carry it.
@@ -33,8 +35,8 @@ from genjax_tpu_torch.core.diff import Diff
 from genjax_tpu_torch.core.gfi import GenerativeFunction, Trace, Update
 from genjax_tpu_torch.core.pytree import Pytree, n_leaves
 from genjax_tpu_torch.core.requests import EmptyRequest, Regenerate
-from genjax_tpu_torch.core.typing import device_of, is_per_particle, per_particle, plain
-from genjax_tpu_torch.distributions.distribution import DistributionTrace
+from genjax_tpu_torch.core.typing import batch_dims, depth_of, device_of, mark, plain
+from genjax_tpu_torch.distributions.distribution import Distribution, DistributionTrace, _drop
 from genjax_tpu_torch.lang.interop import TraceHandler, handler_context
 
 R = TypeVar("R")
@@ -55,16 +57,24 @@ def _flat(args: tuple) -> bool:
     return all(a is None or isinstance(a, (torch.Tensor, float, int)) for a in args)
 
 
+def marked_like(tree, record):
+    """`tree` with each leaf marked at the depth that `record` gives it."""
+    if not any(record):
+        return tree
+    leaves, spec = pytree.tree_flatten(tree)
+    return pytree.tree_unflatten([mark(x, d) for x, d in zip(leaves, record)], spec)
+
+
 def _recorded(tree) -> tuple[Any, tuple]:
-    """`tree` with its `PerParticle` marks taken off, and which of its
-    leaves carried one."""
+    """`tree` with its batch marks taken off, and the depth that each of
+    its leaves was marked with."""
     if isinstance(tree, torch.Tensor):
-        return plain(tree), (is_per_particle(tree),)
+        return plain(tree), (depth_of(tree),)
     if isinstance(tree, tuple) and _flat(tree):
-        record = tuple(is_per_particle(leaf) for leaf in tree)
+        record = tuple(depth_of(leaf) for leaf in tree)
         return (tuple(plain(leaf) for leaf in tree) if any(record) else tree), record
     leaves, spec = pytree.tree_flatten(tree)
-    record = tuple(is_per_particle(leaf) for leaf in leaves)
+    record = tuple(depth_of(leaf) for leaf in leaves)
     if any(record):
         tree = pytree.tree_unflatten([plain(leaf) for leaf in leaves], spec)
     return tree, record
@@ -98,18 +108,39 @@ class StaticTrace(Generic[R], Trace[R]):
     def get_score(self) -> Score:
         scores = [tr.get_score() for tr in self.subtraces.values()]
         if not scores:
-            return torch.zeros(())
+            return torch.zeros((), device=device_of(*pytree.tree_leaves((self.args, self.retval))))
         total = scores[0]
         for s in scores[1:]:
             total = total + s
         return total
 
-    def args_record(self) -> list[bool]:
-        return list(self.args_batched) or [False] * n_leaves(self.args)
+    def args_record(self) -> list[int]:
+        return list(self.args_batched) or [0] * n_leaves(self.args)
 
-    def batched_leaves(self) -> list[bool]:
-        retval = list(self.retval_batched) or [False] * n_leaves(self.retval)
-        bits = [False] * n_leaves(self.gen_fn) + self.args_record() + retval
+    def retval_record(self) -> list[int]:
+        return list(self.retval_batched) or [0] * n_leaves(self.retval)
+
+    def get_inner_trace(self, address):
+        return self.subtraces[address]
+
+    def drop_level(self, r: int = 0) -> "StaticTrace[R]":
+        return StaticTrace(
+            self.gen_fn,
+            self.args,
+            self.retval,
+            {a: tr.drop_level(r) for a, tr in self.subtraces.items()},
+            tuple(_drop(d, r) for d in self.args_batched),
+            tuple(_drop(d, r) for d in self.retval_batched),
+        )
+
+    def add_gap(self, k: int = 1) -> "StaticTrace[R]":
+        subtraces = {a: tr.add_gap(k) for a, tr in self.subtraces.items()}
+        if all(new is old for new, old in zip(subtraces.values(), self.subtraces.values())):
+            return self
+        return StaticTrace(self.gen_fn, self.args, self.retval, subtraces, self.args_batched, self.retval_batched)
+
+    def batched_leaves(self) -> list[int]:
+        bits = [0] * n_leaves(self.gen_fn) + self.args_record() + self.retval_record()
         for tr in self.subtraces.values():
             bits += tr.batched_leaves()
         return bits
@@ -151,12 +182,8 @@ class StaticLangHandler(TraceHandler):
         if not self.mark:
             return v
         if isinstance(tr, DistributionTrace):
-            return per_particle(v) if tr.batched else v
-        if isinstance(tr, StaticTrace) and tr.retval_batched:
-            leaves, spec = pytree.tree_flatten(v)
-            marked = [per_particle(x) if b else x for x, b in zip(leaves, tr.retval_batched)]
-            return pytree.tree_unflatten(marked, spec)
-        return v
+            return mark(v, tr.batched)
+        return marked_like(v, tr.retval_record())
 
 
 class SimulateHandler(StaticLangHandler):
@@ -170,16 +197,20 @@ class SimulateHandler(StaticLangHandler):
 
 
 class AssessHandler(StaticLangHandler):
+    """With a batch, the body sees each value with the mark of its depth
+    (as the choice map records it), so that a `Vmap` further down knows
+    which of its arguments carry which batch axes."""
+
     def __init__(self, sample: ChoiceMap, n: int | None):
-        super().__init__(None, n)
+        super().__init__(None, n, mark=True)
         self.sample = sample
         self.score = None
 
     def handle_trace(self, addr, gen_fn, args):
         submap = self.sample(addr)
-        if submap.static_is_empty():
+        if submap.static_is_empty() and isinstance(gen_fn, Distribution):
             raise MissingAddress(addr)
-        score, v = gen_fn.assess(submap, args, self.n)
+        score, v = gen_fn.assess(submap, args, self.n, self.mark)
         self.score = score if self.score is None else self.score + score
         return v
 
@@ -194,7 +225,7 @@ class GenerateHandler(StaticLangHandler):
         self.like = like
         # With a particle axis the weight is (n,) even where every site's
         # weight is shared (unbatched) or zero.
-        self.weight = torch.zeros(() if n is None else (n,), device=rng.device)
+        self.weight = torch.zeros(batch_dims(n), device=rng.device)
 
     def handle_trace(self, addr, gen_fn, args):
         like = None
@@ -229,7 +260,9 @@ class EditHandler(StaticLangHandler):
             self.rng, self.previous.subtraces[addr], self.site_request(addr), Diff.unknown_change(args), self.n
         )
         self.weight = self.weight + w
-        self.discards[addr] = bwd.constraint
+        # A callee that answers with another request than an `Update` (a
+        # combinator's `Regenerate`) is undone by its old choices whole.
+        self.discards[addr] = bwd.constraint if isinstance(bwd, Update) else self.previous.subtraces[addr].get_choices()
         self.record(addr, tr)
         return tr.get_retval()
 
@@ -275,16 +308,18 @@ class StaticGenerativeFunction(Generic[R], GenerativeFunction[R]):
             retval = self.source(*args)
         return self._trace(args, retval, handler.subtraces)
 
-    def assess(self, sample, args, n=None) -> tuple[Score, R]:
+    def assess(self, sample, args, n=None, marked: bool = False) -> tuple[Score, R]:
+        """With `marked` (a call from an enclosing body), the arguments may
+        carry batch marks and the return value keeps its own."""
         handler = AssessHandler(sample, n)
         with handler_context(handler):
             retval = self.source(*args)
         score = handler.score
         if score is None:
             score = torch.zeros((), device=device_of(*pytree.tree_leaves(args)))
-        if n is not None and score.dim() == 0:
-            score = score.expand(n)
-        return score, retval
+        if n is not None and score.dim() < len(batch_dims(n)):
+            score = score.expand(batch_dims(n))
+        return score, retval if marked or n is None else _recorded(retval)[0]
 
     def generate(self, rng, constraint, args, n=None, like=None) -> tuple[StaticTrace[R], Weight]:
         """With `like`, the body runs on plain tensors (marks on `args` are
@@ -324,22 +359,23 @@ class StaticGenerativeFunction(Generic[R], GenerativeFunction[R]):
         handler = UpdateHandler(rng, trace, constraint)
         return self._edited(trace, Diff.tree_primal(argdiffs), handler)
 
-    def edit_regenerate(self, rng, trace, selection: Selection, argdiffs):
-        handler = RegenerateHandler(rng, trace, selection, trace.particle_count())
+    def edit_regenerate(self, rng, trace, selection: Selection, argdiffs, n=None):
+        handler = RegenerateHandler(rng, trace, selection, trace.particle_count() if n is None else n)
         return self._edited(trace, Diff.tree_primal(argdiffs), handler)
 
     def edit(self, rng, trace, edit_request, argdiffs, n=None):
-        """`n` (the particle count of an enclosing trace) is read from this
-        trace's own record instead."""
+        """`n` is the batch of an enclosing trace; without it, the particle
+        count is read from this trace's own record."""
         match edit_request:
             case Update(constraint):
                 return self.edit_update(rng, trace, constraint, argdiffs)
             case Regenerate(selection):
-                return self.edit_regenerate(rng, trace, selection, argdiffs)
+                return self.edit_regenerate(rng, trace, selection, argdiffs, n)
             case EmptyRequest():
                 return edit_request.edit(rng, trace, argdiffs)
             case _:
                 raise NotSupportedEditRequest(edit_request)
+
 
 
 def gen(f: Callable[..., Any]) -> StaticGenerativeFunction[Any]:

@@ -29,6 +29,29 @@ def logistic_regression(X):
     return logits
 
 
+@gen
+def datum(x, w):
+    """One data point's likelihood, as a kernel for `vmap`: `x` is one row
+    of the design matrix (under the lane axis `(N, D)`), `w` the weights
+    (`(D,)`, or `(C, 1, D)` for C chains). Returns the logit."""
+    logit = (x * w).sum(-1)
+    _ = bernoulli(logits=logit) @ "y"
+    return logit
+
+
+@gen
+def logistic_regression_vmap(X):
+    """The same model with the likelihood as a generative function per
+    data point: `ys` lives at `("data", i, "y")`, stacked at
+    `VMAP_YS`."""
+    d = X.shape[-1]
+    w = mv_normal_diag(X.new_zeros(d), X.new_ones(d)) @ "w"
+    return datum.vmap(in_axes=(0, None))(X, w) @ "data"
+
+
+VMAP_YS = ("data", "y")  # where `logistic_regression_vmap` holds the observations
+
+
 def simulate_logreg_data(rng: torch.Generator, n: int, d: int):
     """(X, ys, w_true) on the generator's device: `X` is (n, d) standard
     normal, `ys` int32 Bernoulli(sigmoid(X @ w_true))."""
@@ -61,17 +84,23 @@ class BenchConfig:
         return X.to(device), ys.to(device)
 
 
-def init_chains(rng: torch.Generator, X, ys, n_chains: int):
+def init_chains(rng: torch.Generator, X, ys, n_chains: int, model=logistic_regression, ys_address="ys"):
     """`n_chains` chains drawn from the prior, `ys` observed: one trace
-    with the chain axis on `w` and one shared copy of `X` and `ys`."""
-    trs, _ = logistic_regression.importance(rng, ChoiceMap.kw(ys=ys), (X,), n=n_chains)
+    with the chain axis on `w` and one shared copy of `X` and `ys`.
+    `model` takes `(X,)`, draws `"w"` and holds the observations at
+    `ys_address`: `"ys"` for `logistic_regression`, `VMAP_YS` for
+    `logistic_regression_vmap`."""
+    trs, _ = model.importance(rng, ChoiceMap.d({ys_address: ys}), (X,), n=n_chains)
     return share_chain_args(trs, (X,))
 
 
-def run_hmc_chains(rng: torch.Generator, X, ys, n_chains: int = 8192, n_steps: int = 100, eps: float = 0.05, L: int = 10):
+def run_hmc_chains(
+    rng: torch.Generator, X, ys, n_chains: int = 8192, n_steps: int = 100, eps: float = 0.05, L: int = 10,
+    model=logistic_regression, ys_address="ys",
+):
     """HMC over `n_chains` chains: returns (final `w`, `(C, n_steps)`
-    accept flags)."""
-    trs = init_chains(rng, X, ys, n_chains)
+    accept flags). `model` and `ys_address` as `init_chains` takes them."""
+    trs = init_chains(rng, X, ys, n_chains, model, ys_address)
     finals, accs = run_chains(rng, trs, HMC(Selection.at["w"], eps, L=L), n_steps)
     return finals.get_choices()["w"], accs
 

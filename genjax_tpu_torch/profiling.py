@@ -1,4 +1,5 @@
-"""Where the time goes on the particle and MCMC paths, on one CUDA card.
+"""Where the time goes on the particle, MCMC and combinator paths, on one
+CUDA card.
 
 Traces each configuration that `chip_smoke.py` runs with `torch.profiler`
 (CUPTI device intervals) and prints, for each:
@@ -10,7 +11,8 @@ Traces each configuration that `chip_smoke.py` runs with `torch.profiler`
 - idle share: `1 - busy / wall`;
 - device items and host kernel-launch calls per step (per trial for SIR,
   per filter step for the filters, per leapfrog step for HMC, per MALA
-  sweep for polyreg), and the largest device items;
+  sweep for polyreg, per scan step for the HMM unfold), and the largest
+  device items;
 - K1: the device kernels of the logsumexp kernel in the trace beside the
   launches its wrappers counted in the same run (one kernel per launch),
   and how many device items come from `torch.softmax`.
@@ -147,7 +149,8 @@ def configurations():
         col = alg.run_smc(rng)
         return col.get_log_marginal_likelihood_estimate(), col.sample_particle(rng)
 
-    from genjax_tpu_torch.models import logreg, polyreg
+    from genjax_tpu_torch.inference.exact_testbed import build_hmm_chain_model
+    from genjax_tpu_torch.models import hmm, logreg, polyreg
 
     small_filter, _ = entry("cuda")
     _, ys = simulate_ssm_data(torch.Generator().manual_seed(1), BIG_FILTER_STEPS)
@@ -155,6 +158,14 @@ def configurations():
     hmc, pr = logreg.BenchConfig(), polyreg.BenchConfig()
     X, yl = hmc.data("cuda")
     xs, yp = pr.data("cuda")
+    hm = hmm.BenchConfig()
+    chain_model = build_hmm_chain_model(hm.hmm(), hm.T, "cuda")
+    xh = hm.data("cuda")
+
+    def unfold():
+        col = hmm.run_hmm_importance(rng, chain_model, xh, hm.initial_state(), hm.n_particles)
+        return col.get_log_marginal_likelihood_estimate()
+
     return [
         (f"SIR beta-bernoulli K={SIR_PARTICLES}, one trial (importance, LML, one draw)", 1, sir_trial),
         (f"filter K={N_PARTICLES} T={N_STEPS}", N_STEPS, lambda: small_filter(rng)),
@@ -174,6 +185,21 @@ def configurations():
             pr.n_sweeps,
             lambda: polyreg.run_is_mh(
                 rng, xs, yp, pr.n_particles, pr.n_sweeps, obs_noise=pr.obs_noise, step_size=pr.step_size
+            ),
+        ),
+        (
+            f"HMM unfold (scan) K={hm.n_particles} T={hm.T}, {hm.n_states} states, every x constrained, and "
+            "the LML; steps are scan steps",
+            hm.T,
+            unfold,
+        ),
+        (
+            f"logreg HMC through Vmap C={hmc.n_chains} N={hmc.n_data} D={hmc.dim} L={hmc.L} S={hmc.n_steps}, one run; "
+            "steps are leapfrog steps",
+            hmc.n_steps * hmc.L,
+            lambda: logreg.run_hmc_chains(
+                rng, X, yl, n_chains=hmc.n_chains, n_steps=hmc.n_steps, eps=hmc.eps, L=hmc.L,
+                model=logreg.logistic_regression_vmap, ys_address=logreg.VMAP_YS,
             ),
         ),
     ]

@@ -219,3 +219,165 @@ def test_hmc_on_the_card_matches_the_cpu(cuda):
     a, b = ws
     se = (a.var(0) / a.shape[0] + b.var(0) / b.shape[0]).sqrt()
     assert bool(((a.mean(0) - b.mean(0)).abs() < 5 * se).all()), (a.mean(0), b.mean(0), se)
+
+
+def test_hmm_scan_on_the_card_is_exact(cuda):
+    # The scan model's assess of exact posterior paths equals the closed-form
+    # joint (1e-4 relative) and the CPU's; the unfold makes no device sync,
+    # launches K1 once for its LML, and its LML is within 5 SE of the exact
+    # marginal (16 states, T=6, K=65,536).
+    import statistics
+
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.distributions.discrete_hmm import forward_filtering_backward_sampling, path_joint_logpdf
+    from genjax_tpu_torch.inference.exact_testbed import build_hmm_chain_model
+    from genjax_tpu_torch.models.hmm import BenchConfig, exact_log_marginal, run_hmm_importance
+
+    cfg = BenchConfig(n_states=16, T=6, n_particles=65_536)
+    obs, init = cfg.data(cuda), cfg.initial_state()
+    model = build_hmm_chain_model(cfg.hmm(), cfg.T, cuda)
+    rng = torch.Generator(device=cuda).manual_seed(0)
+    paths, _ = forward_filtering_backward_sampling(rng, cfg.hmm(), obs, 512)
+    score, _ = model.assess(gx.ChoiceMap.kw(z=gx.per_particle(paths), x=obs), (init, None), n=512)
+    _, trans, emit = cfg.hmm().tables(cuda)
+    ref = path_joint_logpdf(trans[init], trans, emit, paths, obs)
+    assert bool(((score - ref).abs() <= 1e-4 * ref.abs().clamp(min=1.0)).all())
+    cpu_model = build_hmm_chain_model(cfg.hmm(), cfg.T, "cpu")
+    cpu_score, _ = cpu_model.assess(gx.ChoiceMap.kw(z=gx.per_particle(paths.cpu()), x=obs.cpu()), (init, None), n=512)
+    assert bool(((score.cpu() - cpu_score).abs() <= 1e-4 * cpu_score.abs().clamp(min=1.0)).all())
+
+    run_hmm_importance(rng, model, obs, init, cfg.n_particles)  # warm up
+    torch.cuda.synchronize()
+    before = fused_logsumexp.launches
+    torch.cuda.set_sync_debug_mode("error")  # a synchronising call raises
+    try:
+        col = run_hmm_importance(rng, model, obs, init, cfg.n_particles)
+        lml = col.get_log_marginal_likelihood_estimate()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fused_logsumexp.launches == before + 1
+    trace = col.get_particles()
+    assert trace.get_choices()["z"].shape == (cfg.n_particles, cfg.T)
+    assert trace.inner.get_score().shape == (cfg.n_particles, cfg.T)
+    exact = float(exact_log_marginal(cfg.hmm(), obs, init))
+    lmls = [float(lml)] + [
+        float(run_hmm_importance(rng, model, obs, init, cfg.n_particles).get_log_marginal_likelihood_estimate())
+        for _ in range(9)
+    ]
+    se = statistics.stdev(lmls) / math.sqrt(len(lmls))
+    assert abs(statistics.fmean(lmls) - exact) < 5 * se, (lmls, exact)
+
+    # The single-step edit equals the dense re-scan for the same draws.
+    S = gx.Selection.at
+    chains = run_hmm_importance(rng, model, obs, init, 1024).get_particles()
+    for t in (0, 3, cfg.T - 1):
+        one, w_one, _, _ = chains.edit(torch.Generator(device=cuda).manual_seed(t), gx.IndexRequest(t, gx.Regenerate(S["z"])))
+        dense, w_dense, _, _ = chains.edit(torch.Generator(device=cuda).manual_seed(t), gx.Regenerate(S[t, "z"]))
+        assert torch.equal(one.get_choices()["z"], dense.get_choices()["z"])
+        assert bool(((w_one - w_dense).abs() <= 1e-4 * w_dense.abs().clamp(min=1.0)).all())
+
+
+def test_logreg_through_vmap_on_the_card(cuda):
+    # assess through the vmapped likelihood equals the vector-site model's
+    # (1e-4 relative), and HMC through it makes no device sync.
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.models.logreg import (
+        VMAP_YS, init_chains, logistic_regression, logistic_regression_vmap, simulate_logreg_data,
+    )
+
+    X, ys, _ = simulate_logreg_data(torch.Generator().manual_seed(3), 256, 16)
+    X, ys = X.to(cuda), ys.to(cuda)
+    rng = torch.Generator(device=cuda).manual_seed(0)
+    w = torch.randn(1024, 16, generator=rng, device=cuda)
+    vector, _ = logistic_regression.assess(gx.ChoiceMap.kw(w=gx.per_particle(w), ys=ys), (X,), n=1024)
+    lanes, _ = logistic_regression_vmap.assess(gx.ChoiceMap.d({"w": gx.per_particle(w), ("data", "y"): ys}), (X,), n=1024)
+    assert bool(((lanes - vector).abs() <= 1e-4 * vector.abs().clamp(min=1.0)).all())
+    chains = init_chains(rng, X, ys, 1024, logistic_regression_vmap, VMAP_YS)
+    assert chains.get_subtrace("data").inner.get_score().shape == (1024, 256)
+    request = gx.HMC(gx.Selection.at["w"], 0.02, L=5)
+    gx.run_chains(rng, chains, request, 2)  # warm up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        final, accepted = gx.run_chains(rng, chains, request, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert accepted.shape == (1024, 5) and bool(torch.isfinite(final.get_choices()["w"]).all())
+
+
+def test_shared_per_lane_argument_of_length_k_survives_resample(cuda):
+    # K particles and K lanes: the mapped design matrix and the stacked
+    # observations have the particle count as their leading length, and are
+    # shared. Resampling must leave them alone (the record says so, not the
+    # size) while it gathers the per-particle `w` and the (K, K) scores.
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.models.logreg import logistic_regression_vmap
+
+    k = 64
+    rng = torch.Generator(device=cuda).manual_seed(0)
+    X = torch.randn(k, 3, generator=rng, device=cuda)
+    ys = (torch.rand(k, generator=rng, device=cuda) < 0.5).to(torch.int32)
+    trs, lw = logistic_regression_vmap.importance(rng, gx.ChoiceMap.d({("data", "y"): ys}), (X,), n=k)
+    col = gx.ParticleCollection(trs, lw).resample(rng)
+    picked = col.get_particles()
+    data = picked.get_subtrace("data")
+    assert picked.get_args()[0] is X and data.get_args()[0] is X
+    assert data.inner.get_args()[0] is trs.get_subtrace("data").inner.get_args()[0]  # the lanes' x, shared
+    assert picked.get_choices()["data", "y"].shape == (k,) and torch.equal(picked.get_choices()["data", "y"], ys)
+    assert data.inner.get_score().shape == (k, k)
+    score, _ = logistic_regression_vmap.assess(picked.get_choices(), (X,), n=k)
+    assert bool(((score - picked.get_score()).abs() <= 1e-4 * score.abs().clamp(min=1.0)).all())
+
+
+def _normal_logpdf(x, mu, sigma):
+    return -0.5 * ((x - mu) / sigma) ** 2 - math.log(sigma) - 0.5 * math.log(2.0 * math.pi)
+
+
+def test_repeat_on_the_card(cuda):
+    # `repeat` takes its lane count from a static int, so nothing of its
+    # trace lives on the CPU: generate with one lane constrained, assess of
+    # the stacked array (and the refusal of an `(i, "x")` sample of one lane),
+    # `project` of one lane and of all, and an `IndexRequest` edit of one
+    # lane, each against the closed-form normal density (1e-5 per unit of
+    # magnitude).
+    import torch.utils._pytree as pytree
+
+    import genjax_tpu_torch as gx
+
+    @gx.gen
+    def draw(mu, sigma):
+        return gx.normal(mu, sigma) @ "x"
+
+    k, lanes, sigma = 256, 8, 0.7
+    model = draw.repeat(n=lanes)
+    rng = torch.Generator(device=cuda).manual_seed(0)
+    mu = torch.randn(k, generator=rng, device=cuda)
+    args = (gx.per_particle(mu), sigma)
+
+    def close(got, ref):
+        assert got.device.type == cuda.type and got.shape == ref.shape
+        assert bool(((got - ref).abs() <= 1e-5 * ref.abs().clamp(min=1.0)).all())
+
+    seen = torch.tensor(0.5, device=cuda)
+    tr, w = model.generate(rng, gx.ChoiceMap.d({(2, "x"): seen}), args, n=k)
+    assert all(v.device.type == cuda.type for v in pytree.tree_leaves(tr) if isinstance(v, torch.Tensor))
+    xs = tr.get_choices()["x"]
+    assert xs.shape == (k, lanes) and bool((xs[:, 2] == seen).all())
+    close(w, _normal_logpdf(seen, mu, sigma))
+    close(tr.inner.get_score(), _normal_logpdf(xs, mu[:, None], sigma))
+
+    total = _normal_logpdf(xs, mu[:, None], sigma).sum(-1)
+    close(model.assess(gx.ChoiceMap.kw(x=gx.per_particle(xs)), args, n=k)[0], total)
+    with pytest.raises(ValueError, match="some lanes only"):  # assess wants every lane: the stacked array
+        model.assess(gx.ChoiceMap.d({(3, "x"): gx.per_particle(xs[:, 3])}), args, n=k)
+    close(tr.project(rng, gx.Selection.at[3, "x"]), _normal_logpdf(xs[:, 3], mu, sigma))
+    close(tr.project(rng, gx.Selection.at[..., "x"]), total)
+
+    moved = torch.tensor(-0.5, device=cuda)
+    new, w_edit, _, bwd = tr.edit(rng, gx.IndexRequest(3, gx.Update(gx.ChoiceMap.kw(x=moved))))
+    close(w_edit, _normal_logpdf(moved, mu, sigma) - _normal_logpdf(xs[:, 3], mu, sigma))
+    assert isinstance(bwd, gx.IndexRequest) and bwd.idx == 3
+    close(bwd.request.constraint["x"], xs[:, 3])
+    after = new.get_choices()["x"]
+    assert bool((after[:, 3] == moved).all()) and torch.equal(after[:, :3], xs[:, :3]) and torch.equal(after[:, 4:], xs[:, 4:])
+    assert all(v.device.type == cuda.type for v in pytree.tree_leaves(new) if isinstance(v, torch.Tensor))

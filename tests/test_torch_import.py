@@ -41,3 +41,25 @@ def test_no_source_file_imports_jax():
     assert sources
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert not offenders
+
+
+# The names the combinator path exports, each under the JAX package's name.
+COMBINATOR_NAMES = [
+    "Dimap", "DiscreteHMM", "DiscreteHMMConfiguration", "IndexRequest", "RepeatCombinator", "Scan",
+    "VectorRequest", "Vmap", "accumulate", "categorical", "contramap", "dimap",
+    "forward_filtering_backward_sampling", "iterate", "iterate_final", "map", "reduce", "repeat", "scan", "vmap",
+]
+
+
+def test_combinator_names_are_exported_under_the_jax_names():
+    import genjax_tpu
+    import genjax_tpu_torch
+
+    for name in COMBINATOR_NAMES:
+        assert hasattr(genjax_tpu, name), f"genjax_tpu has no {name}"
+        assert hasattr(genjax_tpu_torch, name) and name in genjax_tpu_torch.__all__, name
+    for method in ("vmap", "repeat", "scan", "accumulate", "reduce", "iterate", "iterate_final", "map", "contramap", "dimap"):
+        assert callable(getattr(genjax_tpu_torch.GenerativeFunction, method))
+        assert callable(getattr(genjax_tpu.GenerativeFunction, method))
+    for method in ("get_subtrace", "get_inner_trace"):
+        assert callable(getattr(genjax_tpu_torch.Trace, method)) and callable(getattr(genjax_tpu.Trace, method))
