@@ -27,7 +27,15 @@ as a `vmap` over the 256 data points, held against the vector-site model
 (same scores, same final `w` within error, 0 synchronisations per MH step,
 timed side by side); and `repeat` at K=8192, whose trace must lie on the
 card whole and whose one-lane weights are held against the closed form.
-Every phase raises on failure; nothing is caught.
+Then the branching path (`branching_models`): mixture SIR through `mix`
+at K=1,000,000, every particle on its own component (the `Switch` runs
+both branches for every row), its LML and P(c=1 | y) against the closed
+forms, 2 kernel launches per trial, the kernel held against its plain
+twin on the run's own weights; block-move MH through `Switch` at C=8192
+chains, reversible jump between the branches of the two-block model and
+`enumerative_gibbs` at the same width, each against its exact posterior
+and with 0 device synchronisations per step; each of the four timed and
+profiled. Every phase raises on failure; nothing is caught.
 
 Run from the repository root, with one CUDA card visible:
 
@@ -81,6 +89,22 @@ HMM_ORACLE_STEPS = 8
 HMM_ORACLE_RUNS = 10
 HMM_EDIT_CHAINS = 8_192
 VMAP_HMC_RUNS = 5
+# The branching path: the mixture of `docs/cookbook/08_mixture_mh.py` (SIR
+# at the SIR headline's width, block-move MH at the MCMC path's chain
+# count), reversible jump on the model of `tests/inference/test_rjmcmc.py`
+# and `enumerative_gibbs` on its docstring model, at the same chain count.
+MIX_PARTICLES = 1_000_000
+MIX_TRIALS = 20
+MIX_LOGITS = (0.3, -0.2)
+MIX_MU, MIX_SIG, MIX_OBS_SD, MIX_Y = (0.0, 5.0), (1.0, 2.0), 0.5, 2.5
+BRANCH_CHAINS = 8_192
+BLOCK_MH_STEPS = 80
+RJ_N, RJ_SIG, RJ_TAU = 4, 0.5, 0.7
+RJ_SWEEPS = 100
+GIBBS_Y = 0.9
+GIBBS_SWEEPS = 10
+PROFILE_SWEEPS = 10  # the MH steps or sweeps of one profiled run
+BRANCH_RUNS = 3
 
 
 def check(ok: bool, what: str) -> None:
@@ -812,6 +836,267 @@ def phase_repeat(gx) -> None:
           f"edited score within {max(errs):.3e} relative of the closed form (limit 1e-5)")
 
 
+def normal_pdf(y: float, mu: float, sd: float) -> float:
+    return math.exp(-0.5 * ((y - mu) / sd) ** 2) / (sd * math.sqrt(2.0 * math.pi))
+
+
+def branching_models(gx, device: str):
+    """The branching path's models, defined here as the cookbook defines
+    its own: the two-component mixture through `mix` with its block move,
+    the two-configuration model of the reversible-jump test (its seeded
+    data) with both jump directions, and `enumerative_gibbs`'s docstring
+    model; with each one's closed form."""
+    import types
+
+    import numpy as np
+
+    C, B, S = gx.ChoiceMap, gx.ChoiceMapBuilder, gx.Selection.at
+    logits = torch.tensor(MIX_LOGITS, device=device)
+
+    @gx.gen
+    def narrow():
+        return gx.normal(MIX_MU[0], MIX_SIG[0]) @ "v"
+
+    @gx.gen
+    def wide():
+        return gx.normal(MIX_MU[1], MIX_SIG[1]) @ "v"
+
+    @gx.gen
+    def mixture():
+        v = gx.mix(narrow, wide)(logits, (), ()) @ "m"
+        return gx.normal(v, MIX_OBS_SD) @ "y"
+
+    prior = [math.exp(a) / sum(math.exp(b) for b in MIX_LOGITS) for a in MIX_LOGITS]
+    joint = [p * normal_pdf(MIX_Y, m, math.sqrt(s * s + MIX_OBS_SD**2)) for p, m, s in zip(prior, MIX_MU, MIX_SIG)]
+
+    data = np.random.default_rng(1)
+    ys1 = torch.tensor(0.35 + RJ_SIG * data.standard_normal(RJ_N), dtype=torch.float32, device=device)
+    ys2 = torch.tensor(-0.35 + RJ_SIG * data.standard_normal(RJ_N), dtype=torch.float32, device=device)
+    ones = torch.ones(RJ_N, device=device)
+
+    @gx.gen
+    def shared_mean():
+        mu = gx.normal(0.0, 1.0) @ "mu"
+        return (mu, mu)
+
+    @gx.gen
+    def two_means():
+        return (gx.normal(0.0, 1.0) @ "mu1", gx.normal(0.0, 1.0) @ "mu2")
+
+    @gx.gen
+    def rj_model(ys1, ys2):
+        m = gx.flip(0.5) @ "m"
+        means = gx.switch(shared_mean, two_means)(m.to(torch.int64), (), ()) @ "k"
+        _ = gx.normal(means[0][..., None] * ones, RJ_SIG) @ "y1"
+        _ = gx.normal(means[1][..., None] * ones, RJ_SIG) @ "y2"
+
+    @gx.gen
+    def aux_up():
+        _ = gx.normal(0.0, RJ_TAU) @ "u"
+
+    @gx.gen
+    def aux_down():
+        return 0.0
+
+    up = gx.JumpProposal(
+        read=lambda chm: chm["k", "mu"].unmask(0.0), aux=aux_up,
+        involution=lambda mu, u: ((mu + u["u"], mu - u["u"]), C.empty()),
+        constraint=lambda p: B["m"].set(True) | B["k", "mu1"].set(p[0]) | B["k", "mu2"].set(p[1]),
+    )
+    down = gx.JumpProposal(
+        read=lambda chm: (chm["k", "mu1"].unmask(0.0), chm["k", "mu2"].unmask(0.0)), aux=aux_down,
+        involution=lambda p, u: ((p[0] + p[1]) / 2.0, C.kw(u=(p[0] - p[1]) / 2.0)),
+        constraint=lambda mu: B["m"].set(False) | B["k", "mu"].set(mu),
+    )
+
+    def log_evidence(y, blocks):
+        cov = RJ_SIG**2 * np.eye(len(y))
+        for b in blocks:
+            cov[np.ix_(b, b)] += 1.0
+        _, logdet = np.linalg.slogdet(cov)
+        return float(-0.5 * y @ np.linalg.solve(cov, y) - 0.5 * (logdet + len(y) * np.log(2 * np.pi)))
+
+    y = torch.cat([ys1, ys2]).double().cpu().numpy()
+    e0 = log_evidence(y, [list(range(2 * RJ_N))])
+    e1 = log_evidence(y, [list(range(RJ_N)), list(range(RJ_N, 2 * RJ_N))])
+
+    gibbs_prior = torch.log(torch.tensor([0.5, 0.5], device=device))
+
+    @gx.gen
+    def indicator():
+        z = gx.categorical(gibbs_prior) @ "z"
+        _ = gx.normal(torch.where(z == 0, -1.0, 1.0), 1.0) @ "y"
+
+    return types.SimpleNamespace(
+        mixture=mixture, block=S["m", "mixture_component"] | S["m", "component_sample", ...],
+        mix_lml=math.log(sum(joint)), mix_p1=joint[1] / sum(joint),
+        rj_model=rj_model, rj_args=(ys1, ys2), rj_obs=C.kw(y1=ys1, y2=ys2), up=up, down=down,
+        is_up=lambda chm: ~chm["m"], rj_within=gx.Regenerate(S["k", ...]), rj_p1=1.0 / (1.0 + math.exp(e0 - e1)),
+        indicator=indicator, gibbs_values=torch.arange(2, device=device),
+        gibbs_p1=normal_pdf(GIBBS_Y, 1.0, 1.0) / (normal_pdf(GIBBS_Y, -1.0, 1.0) + normal_pdf(GIBBS_Y, 1.0, 1.0)),
+    )
+
+
+def rj_sweeps(gx, m, rng: torch.Generator, trace, sweeps: int):
+    """`sweeps` sweeps of one reversible jump and one within-model MH move;
+    the final trace and the jumps' accept flags, (sweeps, C)."""
+    accepted = []
+    for _ in range(sweeps):
+        trace, acc = gx.reversible_jump(rng, trace, m.up, m.down, m.is_up)
+        trace, _ = gx.mh(rng, trace, m.rj_within)
+        accepted.append(acc)
+    return trace, torch.stack(accepted)
+
+
+def gibbs_sweeps(gx, m, rng: torch.Generator, trace, sweeps: int):
+    for _ in range(sweeps):
+        trace = gx.enumerative_gibbs(rng, trace, "z", m.gibbs_values)
+    return trace
+
+
+def branching_configurations(gx, rng: torch.Generator) -> list:
+    """(label, steps, fn) of each configuration of the branching path, for
+    `genjax_tpu_torch.profiling`: one mixture SIR trial, and
+    `PROFILE_SWEEPS` MH steps, jump sweeps and Gibbs sweeps at C chains."""
+    m = branching_models(gx, "cuda")
+    alg = gx.ImportanceK(gx.Target(m.mixture, (), gx.ChoiceMap.kw(y=MIX_Y)), k_particles=MIX_PARTICLES)
+
+    def mixture_trial():
+        col = alg.run_smc(rng)
+        return col.get_log_marginal_likelihood_estimate(), col.sample_particle(rng)
+
+    mix_chains, _ = m.mixture.importance(rng, gx.ChoiceMap.kw(y=MIX_Y), (), n=BRANCH_CHAINS)
+    rj_chains, _ = m.rj_model.importance(rng, m.rj_obs, m.rj_args, n=BRANCH_CHAINS)
+    gibbs_chains, _ = m.indicator.importance(rng, gx.ChoiceMap.kw(y=GIBBS_Y), (), n=BRANCH_CHAINS)
+    block = gx.Regenerate(m.block)
+    return [
+        (f"mixture SIR through mix K={MIX_PARTICLES}, one trial (importance, LML, one draw)", 1, mixture_trial),
+        (f"block-move MH through Switch C={BRANCH_CHAINS}, {PROFILE_SWEEPS} MH steps; steps are MH steps",
+         PROFILE_SWEEPS, lambda: gx.run_chains(rng, mix_chains, block, PROFILE_SWEEPS)),
+        (f"reversible jump across Switch branches C={BRANCH_CHAINS}, {PROFILE_SWEEPS} sweeps (jump + within-model "
+         "MH); steps are sweeps", PROFILE_SWEEPS, lambda: rj_sweeps(gx, m, rng, rj_chains, PROFILE_SWEEPS)),
+        (f"enumerative_gibbs C={BRANCH_CHAINS}, {PROFILE_SWEEPS} sweeps over 2 values; steps are sweeps",
+         PROFILE_SWEEPS, lambda: gibbs_sweeps(gx, m, rng, gibbs_chains, PROFILE_SWEEPS)),
+    ]
+
+
+def print_profile(card: str, label: str, prof: dict) -> None:
+    print(f"[{card}] {label} profile: wall {prof['wall_ms']:.3f} ms, device busy {prof['device_busy_ms']:.3f} ms, "
+          f"idle {100 * prof['idle_share']:.1f}%, {prof['device_items_per_step']:.1f} device items and "
+          f"{prof['launch_calls_per_step']:.1f} launch calls per step, peak device memory {prof['peak_mib']:.1f} MiB; "
+          "largest: " + "; ".join(f"{i['name'][:60]} x{i['count']} {i['ms']:.2f} ms" for i in prof["largest"]))
+
+
+def phase_branching(gx, ops, card: str) -> None:
+    """The branching path: P1 mixture SIR at K=1M (K1 twice per trial, held
+    against its plain twin on the run's weights), P2 block-move MH, P3
+    reversible jump and P4 enumerative Gibbs at C chains, each against its
+    closed form, with 0 device synchronisations per step."""
+    from genjax_tpu_torch import profiling
+
+    m = branching_models(gx, "cuda")
+    rng = torch.Generator(device="cuda").manual_seed(10)
+    profiles = dict(zip(("P1", "P2", "P3", "P4"), branching_configurations(gx, rng)))
+
+    # P1: mixture SIR. Every particle draws its own component, so the
+    # Switch runs both branches for all K rows and selects.
+    alg = gx.ImportanceK(gx.Target(m.mixture, (), gx.ChoiceMap.kw(y=MIX_Y)), k_particles=MIX_PARTICLES)
+
+    def trial():
+        col = alg.run_smc(rng)
+        before_lml = ops.fused_logsumexp.launches
+        lml = col.get_log_marginal_likelihood_estimate()
+        before_draw = ops.fused_logsumexp.launches
+        draw = col.sample_particle(rng).get_choices()["m", "mixture_component"]
+        return col, lml, draw, (before_draw - before_lml, ops.fused_logsumexp.launches - before_draw)
+
+    times, trials = timed_runs(trial, MIX_TRIALS)
+    check(all(counts == (1, 1) for *_, counts in trials),
+          f"mixture SIR: K1 launches (LML, draw) per trial {[t[-1] for t in trials]}, not (1, 1)")
+    lmls, p1s = [], []
+    for col, lml, draw, _ in trials:
+        c = col.get_particles().get_choices()["m", "mixture_component"]
+        check(c.shape == (MIX_PARTICLES,) and c.dtype == torch.int64 and int(draw) in (0, 1),
+              f"mixture SIR: components {tuple(c.shape)} {c.dtype}, draw {draw}")
+        lmls.append(float(lml))
+        p1s.append(float(torch.softmax(col.get_log_weights().double(), 0) @ (c == 1).double()))
+    col = trials[-1][0]
+    lw = col.get_log_weights()
+    counted = ops.fused_logsumexp.launches
+    got = ops.fused_logsumexp(lw)
+    ops.fused_logsumexp.launches = counted  # a comparison, not a launch of the path
+    ok, err = close(got, ops.logsumexp_plain(lw))
+    check(ok, f"logsumexp on the mixture SIR log weights: {float(got)} vs plain {float(ops.logsumexp_plain(lw))}")
+    del trials, col, lw
+    print(f"mixture SIR K={MIX_PARTICLES} " + within_se(lmls, m.mix_lml, "LML") + "; "
+          + within_se(p1s, m.mix_p1, "P(c=1 | y) (self-normalized)"))
+    print(f"logsumexp == plain on the mixture SIR log weights (K={MIX_PARTICLES}): |err| {err:.3e} (tolerance "
+          f"1e-5 * max(1, |ref|)); K1 launches per trial: 1 for the LML, 1 for the draw (each of {MIX_TRIALS} trials)")
+    ms = statistics.median(times)
+    print(f"[{card}] mixture SIR through mix K={MIX_PARTICLES}: {ms:.3f} ms/trial (median of {MIX_TRIALS}; host "
+          f"clock between syncs), {MIX_PARTICLES / (ms * 1e-3):.4g} particles/s")
+    print_profile(card, "mixture SIR", profiling.trace(profiles["P1"][2], 1))
+
+    # P2: block-move MH through Switch.
+    block = gx.Regenerate(m.block)
+    chains, _ = m.mixture.importance(rng, gx.ChoiceMap.kw(y=MIX_Y), (), n=BRANCH_CHAINS)
+    new, w, _, _ = block.edit(rng, chains, gx.Diff.no_change(()))
+    err_w = relative_error(w, new.get_score() - chains.get_score())
+    check(err_w <= 1e-5, f"block Regenerate: weight vs the change of the score, relative error {err_w}")
+    syncs = count_syncs(lambda: gx.run_chains(rng, chains, block, BLOCK_MH_STEPS))
+    check(syncs == 0, f"block-move MH made {syncs} device synchronisations over {BLOCK_MH_STEPS} MH steps")
+    times, results = timed_runs(lambda: gx.run_chains(rng, chains, block, BLOCK_MH_STEPS), BRANCH_RUNS)
+    final, accepted = results[-1]
+    p1 = (final.get_choices()["m", "mixture_component"] == 1).double().mean().item()
+    se = math.sqrt(m.mix_p1 * (1 - m.mix_p1) / BRANCH_CHAINS)
+    check(abs(p1 - m.mix_p1) < 5 * se, f"block-move MH P(c=1 | y) {p1} vs {m.mix_p1} (SE {se})")
+    ms = statistics.median(times)
+    print(f"block-move MH C={BRANCH_CHAINS} S={BLOCK_MH_STEPS}: P(c=1 | y) over the final states {p1:.5f} (exact "
+          f"{m.mix_p1:.5f}, {abs(p1 - m.mix_p1) / se:.2f} binomial SE off, limit 5); accept rate "
+          f"{accepted.float().mean().item():.4f}; weight equals the change of the score (relative error {err_w:.2e}); "
+          f"{syncs} device synchronisations over {BLOCK_MH_STEPS} MH steps (0 per step)")
+    print(f"[{card}] block-move MH through Switch C={BRANCH_CHAINS} S={BLOCK_MH_STEPS}: {ms:.3f} ms/run, "
+          f"{ms / BLOCK_MH_STEPS:.3f} ms per MH step (median of {BRANCH_RUNS} runs; host clock between syncs)")
+    print_profile(card, f"block-move MH ({PROFILE_SWEEPS} steps)", profiling.trace(profiles["P2"][2], PROFILE_SWEEPS))
+
+    # P3: reversible jump across the Switch's branches.
+    chains, _ = m.rj_model.importance(rng, m.rj_obs, m.rj_args, n=BRANCH_CHAINS)
+    syncs = count_syncs(lambda: rj_sweeps(gx, m, rng, chains, PROFILE_SWEEPS))
+    check(syncs == 0, f"reversible jump made {syncs} device synchronisations over {PROFILE_SWEEPS} sweeps")
+    times, results = timed_runs(lambda: rj_sweeps(gx, m, rng, chains, RJ_SWEEPS), BRANCH_RUNS)
+    final, accepted = results[-1]
+    p1 = final.get_choices()["m"].double().mean().item()
+    se = math.sqrt(m.rj_p1 * (1 - m.rj_p1) / BRANCH_CHAINS)
+    check(abs(p1 - m.rj_p1) < 5 * se, f"reversible jump P(m=1 | y) {p1} vs {m.rj_p1} (SE {se})")
+    rate = accepted.float().mean().item()
+    check(0.05 < rate < 0.95, f"reversible jump accept rate {rate}")
+    ms = statistics.median(times)
+    print(f"reversible jump C={BRANCH_CHAINS}, {RJ_SWEEPS} sweeps: P(m=1 | y) over the final states {p1:.5f} (exact "
+          f"{m.rj_p1:.5f}, {abs(p1 - m.rj_p1) / se:.2f} binomial SE off, limit 5); jump accept rate {rate:.4f}; "
+          f"{syncs} device synchronisations over {PROFILE_SWEEPS} sweeps (0 per step)")
+    print(f"[{card}] reversible jump C={BRANCH_CHAINS}: {ms:.3f} ms per {RJ_SWEEPS} sweeps, {ms / RJ_SWEEPS:.3f} ms "
+          f"per sweep (median of {BRANCH_RUNS} runs; host clock between syncs)")
+    print_profile(card, f"reversible jump ({PROFILE_SWEEPS} sweeps)", profiling.trace(profiles["P3"][2], PROFILE_SWEEPS))
+
+    # P4: enumerative Gibbs, exact in one sweep.
+    chains, _ = m.indicator.importance(rng, gx.ChoiceMap.kw(y=GIBBS_Y), (), n=BRANCH_CHAINS)
+    syncs = count_syncs(lambda: gibbs_sweeps(gx, m, rng, chains, GIBBS_SWEEPS))
+    check(syncs == 0, f"enumerative_gibbs made {syncs} device synchronisations over {GIBBS_SWEEPS} sweeps")
+    times, results = timed_runs(lambda: gibbs_sweeps(gx, m, rng, chains, GIBBS_SWEEPS), BRANCH_RUNS)
+    z = results[-1].get_choices()["z"]
+    p1 = (z == 1).double().mean().item()
+    se = math.sqrt(m.gibbs_p1 * (1 - m.gibbs_p1) / BRANCH_CHAINS)
+    check(z.shape == (BRANCH_CHAINS,) and abs(p1 - m.gibbs_p1) < 5 * se,
+          f"enumerative_gibbs P(z=1 | y) {p1} vs {m.gibbs_p1} (SE {se}), z {tuple(z.shape)}")
+    ms = statistics.median(times)
+    print(f"enumerative_gibbs C={BRANCH_CHAINS}: P(z=1 | y) {p1:.5f} (exact {m.gibbs_p1:.5f}, "
+          f"{abs(p1 - m.gibbs_p1) / se:.2f} binomial SE off, limit 5); {syncs} device synchronisations over "
+          f"{GIBBS_SWEEPS} sweeps (0 per step)")
+    print(f"[{card}] enumerative_gibbs C={BRANCH_CHAINS}: {ms / GIBBS_SWEEPS:.3f} ms per sweep (median of "
+          f"{BRANCH_RUNS} runs of {GIBBS_SWEEPS} sweeps; host clock between syncs)")
+    print_profile(card, f"enumerative_gibbs ({PROFILE_SWEEPS} sweeps)", profiling.trace(profiles["P4"][2], PROFILE_SWEEPS))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -842,15 +1127,16 @@ def main() -> None:
         "particle": drive(lambda: (phase_sir(gx, ops, card), phase_filter(ops, card))),
         "mcmc": drive(lambda: (phase_hmc(gx, card), phase_polyreg(gx, ops, card))),
         "combinator": drive(lambda: (phase_hmm_scan(gx, ops, card), phase_logreg_vmap(gx, card), phase_repeat(gx))),
+        "branching": drive(lambda: phase_branching(gx, ops, card)),
     }
     launches = {name: sum(p[name] for p in paths.values()) for name in ("logsumexp", "logsumexp_ess")}
     for name, count in paths["particle"].items():
         check(count > 0, f"the particle path launched no {name} kernel")
     check(paths["mcmc"]["logsumexp"] > 0, "the MCMC path (polyreg) launched no logsumexp kernel")
     check(paths["combinator"]["logsumexp"] > 0, "the combinator path (the HMM unfold) launched no logsumexp kernel")
+    check(paths["branching"]["logsumexp"] > 0, "the branching path (mixture SIR) launched no logsumexp kernel")
     print("kernel launches on the main paths: " + ", ".join(
-        f"{name} {count} (particle path {paths['particle'][name]}, MCMC path {paths['mcmc'][name]}, "
-        f"combinator path {paths['combinator'][name]})"
+        f"{name} {count} (" + ", ".join(f"{path} path {p[name]}" for path, p in paths.items()) + ")"
         for name, count in launches.items()))
 
     print(json.dumps({"kernels": [{

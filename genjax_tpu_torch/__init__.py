@@ -1,5 +1,5 @@
-"""genjax_tpu_torch: the particle, MCMC and combinator paths of genjax_tpu
-on PyTorch and CUDA.
+"""genjax_tpu_torch: the particle, MCMC, combinator and branching paths of
+genjax_tpu on PyTorch and CUDA.
 
 A port of `genjax_tpu` (JAX) to PyTorch, module for module
 (`genjax_tpu_torch/inference/smc.py` mirrors `genjax_tpu/inference/smc.py`).
@@ -12,8 +12,10 @@ torch and numpy, never jax.
 
 from genjax_tpu_torch.combinators import (
     Dimap,
+    MaskCombinator,
     RepeatCombinator,
     Scan,
+    Switch,
     VectorRequest,
     Vmap,
     accumulate,
@@ -22,17 +24,24 @@ from genjax_tpu_torch.combinators import (
     iterate,
     iterate_final,
     map,
+    mask,
+    masked_iterate,
+    masked_iterate_final,
+    mix,
+    or_else,
     reduce,
     repeat,
     scan,
+    switch,
     vmap,
 )
-from genjax_tpu_torch.core.choice_map import ChoiceMap, Selection
+from genjax_tpu_torch.core.choice_map import ChoiceMap, ChoiceMapBuilder, Selection
 from genjax_tpu_torch.core.concepts import IndexRequest
 from genjax_tpu_torch.core.diff import Diff
 from genjax_tpu_torch.core.gfi import GenerativeFunction, Trace, Update
+from genjax_tpu_torch.core.mask import Mask
 from genjax_tpu_torch.core.pytree import Pytree
-from genjax_tpu_torch.core.requests import EmptyRequest, Regenerate
+from genjax_tpu_torch.core.requests import EmptyRequest, Regenerate, UnsupportedBackwardRequest
 from genjax_tpu_torch.core.typing import per_particle
 from genjax_tpu_torch.distributions import (
     DiscreteHMM,
@@ -51,11 +60,16 @@ from genjax_tpu_torch.inference import (
     MALA,
     BootstrapFilter,
     ImportanceK,
+    JumpProposal,
     ParticleCollection,
     Target,
+    enumerative_gibbs,
     ess,
+    gibbs_chain,
+    gibbs_sweep,
     mh,
     mh_chain,
+    reversible_jump,
     run_chains,
 )
 from genjax_tpu_torch.lang import AddressReuse, MissingAddress, gen
@@ -65,6 +79,7 @@ __all__ = [
     "AddressReuse",
     "BootstrapFilter",
     "ChoiceMap",
+    "ChoiceMapBuilder",
     "Diff",
     "Dimap",
     "DiscreteHMM",
@@ -74,7 +89,10 @@ __all__ = [
     "HMC",
     "ImportanceK",
     "IndexRequest",
+    "JumpProposal",
     "MALA",
+    "Mask",
+    "MaskCombinator",
     "MissingAddress",
     "ParticleCollection",
     "Pytree",
@@ -82,8 +100,10 @@ __all__ = [
     "RepeatCombinator",
     "Scan",
     "Selection",
+    "Switch",
     "Target",
     "Trace",
+    "UnsupportedBackwardRequest",
     "Update",
     "VectorRequest",
     "Vmap",
@@ -93,23 +113,33 @@ __all__ = [
     "categorical",
     "contramap",
     "dimap",
+    "enumerative_gibbs",
     "ess",
     "flip",
     "forward_filtering_backward_sampling",
     "gen",
+    "gibbs_chain",
+    "gibbs_sweep",
     "iterate",
     "iterate_final",
     "logsumexp",
     "map",
+    "mask",
+    "masked_iterate",
+    "masked_iterate_final",
     "mh",
     "mh_chain",
+    "mix",
     "mv_normal_diag",
     "normal",
+    "or_else",
     "per_particle",
     "reduce",
     "repeat",
+    "reversible_jump",
     "run_chains",
     "scan",
+    "switch",
     "uniform",
     "vmap",
 ]

@@ -1,9 +1,10 @@
 """Generative function combinators: `vmap`, `scan` and its derived forms,
-`dimap` / `map` / `contramap`, `repeat`. `switch`, `mask`, `mix`,
-`or_else` and `masked_iterate*` come later."""
+`dimap` / `map` / `contramap`, `repeat`, `switch`, `mask`, `mix` and
+`or_else`."""
 
-from genjax_tpu_torch.combinators.compose import RepeatCombinator, repeat
+from genjax_tpu_torch.combinators.compose import RepeatCombinator, mix, or_else, repeat
 from genjax_tpu_torch.combinators.dimap import Dimap, DimapTrace, contramap, dimap, map
+from genjax_tpu_torch.combinators.mask import MaskCombinator, MaskTrace, mask
 from genjax_tpu_torch.combinators.scan import (
     Scan,
     ScanTrace,
@@ -11,18 +12,25 @@ from genjax_tpu_torch.combinators.scan import (
     accumulate,
     iterate,
     iterate_final,
+    masked_iterate,
+    masked_iterate_final,
     prepend_initial_acc,
     reduce,
     scan,
 )
+from genjax_tpu_torch.combinators.switch import Switch, SwitchTrace, switch
 from genjax_tpu_torch.combinators.vmap import Vmap, VmapTrace, vmap
 
 __all__ = [
     "Dimap",
     "DimapTrace",
+    "MaskCombinator",
+    "MaskTrace",
     "RepeatCombinator",
     "Scan",
     "ScanTrace",
+    "Switch",
+    "SwitchTrace",
     "VectorRequest",
     "Vmap",
     "VmapTrace",
@@ -32,9 +40,15 @@ __all__ = [
     "iterate",
     "iterate_final",
     "map",
+    "mask",
+    "masked_iterate",
+    "masked_iterate_final",
+    "mix",
+    "or_else",
     "prepend_initial_acc",
     "reduce",
     "repeat",
     "scan",
+    "switch",
     "vmap",
 ]

@@ -1,6 +1,7 @@
 """`Scan` combinator: sequential composition `(c, a) -> (c, b)` over a
 fixed number of steps, plus the derived decorators (`accumulate`,
-`reduce`, `iterate`, `iterate_final`; `masked_iterate*` come with `mask`).
+`reduce`, `iterate`, `iterate_final`, `masked_iterate`,
+`masked_iterate_final`).
 
 Counterpart of `genjax_tpu/combinators/scan.py`: simulate, generate,
 assess, project, the `Update` / `Regenerate` re-scan edits, the
@@ -589,5 +590,47 @@ def iterate_final(*, n: int):
     def decorator(f: GenerativeFunction[Any]):
         kernel = Dimap(f, lambda c, _scanned: (c,), lambda _args, _xformed, c: (c, None), "iterate-final-kernel")
         return Dimap(Scan(kernel, n), lambda a: (a, None), lambda _args, _xformed, ret: ret[0], "iterate_final")
+
+    return decorator
+
+
+def masked_iterate():
+    """`a -> a` kernel becomes `(a, [flags]) -> [a]`: step `t` runs the
+    kernel under `MaskCombinator` with flag `t`; a masked-out step still
+    hands its value on but adds nothing to the score (sequences of varying
+    length)."""
+
+    def decorator(f: GenerativeFunction[Any]):
+        from genjax_tpu_torch.combinators.mask import MaskCombinator
+
+        kernel = Dimap(
+            MaskCombinator(f),
+            lambda c, flag: (flag, c),
+            lambda _args, _xformed, masked: (masked.value, masked.value),
+            "masked-iterate-kernel",
+        )
+        return Dimap(
+            Scan(kernel, None),
+            lambda *args: args,
+            lambda args, _xformed, ret: prepend_initial_acc(args, ret),
+            "masked_iterate",
+        )
+
+    return decorator
+
+
+def masked_iterate_final():
+    """`a -> a` kernel becomes `(a, [flags]) -> a` (the final value)."""
+
+    def decorator(f: GenerativeFunction[Any]):
+        from genjax_tpu_torch.combinators.mask import MaskCombinator
+
+        kernel = Dimap(
+            MaskCombinator(f),
+            lambda c, flag: (flag, c),
+            lambda _args, _xformed, masked: (masked.value, None),
+            "masked-iterate-final-kernel",
+        )
+        return Dimap(Scan(kernel, None), lambda *args: args, lambda _args, _xformed, ret: ret[0], "masked_iterate_final")
 
     return decorator

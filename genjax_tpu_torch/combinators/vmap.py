@@ -25,13 +25,18 @@ import torch.utils._pytree as pytree
 from genjax_tpu_torch.core.choice_map import (
     Choice,
     ChoiceMap,
+    Indexed,
     NoneSel,
+    Or,
     Selection,
+    Static,
+    Switch,
     statically_unmatchable_at_index_level,
 )
 from genjax_tpu_torch.core.concepts import EditRequest, IndexRequest, NotSupportedEditRequest, Score, Weight
 from genjax_tpu_torch.core.diff import Diff
 from genjax_tpu_torch.core.gfi import GenerativeFunction, Trace, Update
+from genjax_tpu_torch.core.mask import Mask
 from genjax_tpu_torch.core.pytree import Pytree, n_leaves
 from genjax_tpu_torch.core.requests import EmptyRequest, Regenerate
 from genjax_tpu_torch.core.typing import batch_dims, depth_of, device_of, mark, plain
@@ -101,11 +106,23 @@ def _leave_tree(tree: Any, record: list, n: int) -> tuple[Any, tuple]:
     return pytree.tree_unflatten([v for v, _ in out], spec), tuple(d for _, d in out)
 
 
+def _leave_choice(c: Choice, n: int, gap: int) -> Choice:
+    if not isinstance(c.v, Mask):
+        return Choice(*_leave(c.v, c.batched, n, gap))
+    # A value that holds in some lanes only stays masked: the lane axis
+    # of its flag becomes the flag's first axis past its batch axes, as
+    # it becomes the value's.
+    v, depth = _leave(c.v.value, c.batched, n, gap)
+    flag, flag_depth = _leave(c.v.flag, c.v.flag_depth, n, gap)
+    return Choice.build(Mask(v, flag, (depth,), flag_depth))
+
+
 def _leave_choices(chm: ChoiceMap, n: int, gap: int = 0) -> ChoiceMap:
     """The kernel's choices as the stacked map the outside sees. A choice
-    that held in some lanes only comes out whole (the old value of every
-    lane: a backward `Update` with it restores them all)."""
-    return chm.map_choices(lambda c: Choice(*_leave(c.v, c.batched, n, gap)))
+    that holds in some lanes only (the discard of a lane-wise `Update`)
+    comes out as a `Mask` over the lanes, as JAX's `vmap` of the kernel's
+    discard gives it."""
+    return chm.map_choices(lambda c: _leave_choice(c, n, gap))
 
 
 @Pytree.dataclass
@@ -197,6 +214,20 @@ class VmapTrace(Generic[R], Trace[R]):
 def _at_lanes(chm: ChoiceMap, n: int, device) -> ChoiceMap:
     """`chm` asked about all `n` lanes at once; an empty map costs no launch."""
     return chm if chm.static_is_empty() else chm.at_lanes(torch.arange(n, device=device))
+
+
+def _has_index_entries(chm: ChoiceMap) -> bool:
+    """Whether `chm` nests a value under an index (a value for some lanes,
+    not the stacked value of every lane)."""
+    if isinstance(chm, Indexed):
+        return True
+    if isinstance(chm, Static):
+        return any(_has_index_entries(c) for c in chm.children.values())
+    if isinstance(chm, Or):
+        return _has_index_entries(chm.c1) or _has_index_entries(chm.c2)
+    if isinstance(chm, Switch):
+        return any(_has_index_entries(c) for c in chm.chms)
+    return False
 
 
 def _lane_axis(v: Any, depth: int, n: int) -> int | None:
@@ -314,6 +345,8 @@ class Vmap(Generic[R], GenerativeFunction[R]):
         return VmapTrace.build(self, tr, args, record, lanes, batch), _sum_lanes(w, lanes)
 
     def assess(self, sample: ChoiceMap, args: tuple, n=None, marked: bool = False) -> tuple[Score, R]:
+        if _has_index_entries(sample):
+            raise ValueError("Vmap.assess: the sample holds a value in some lanes only; assess every lane (stacked)")
         batch = batch_dims(n)
         inner_args, args, _, lanes = self._enter(args, None, True)
         device = device_of(*pytree.tree_leaves((sample, args)))  # the lane flags go where the sample's values are

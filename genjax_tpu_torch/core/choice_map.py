@@ -20,11 +20,16 @@ the whole array, with the lane or step axis right after the batch axes,
 and an index component addresses that axis: `chm[i, "x"]`, `chm(i)`.
 `S[i, "x"]` selects one lane or step, `S[..., "x"]` every one.
 
-A combinator that runs every lane at once asks about all of them in one
-call (`at_lanes`): the answer to "which lanes hold a value" or "which
-lanes are selected" is then a boolean tensor over the lanes, carried by a
-`FlaggedChoice` or a `LaneSel`. `Mask`, `Switch` and `MaskedSel`, the
-general forms of these, come with the `switch` and `mask` combinators.
+A value that holds only where a flag does is a `Mask` (`core/mask.py`)
+at a `Choice`; a selection that holds only where a flag does is a
+`MaskedSel`. Both arise where a question has a different answer per
+particle or per lane: a combinator that runs every lane at once asks
+about all of them in one call (`at_lanes`), and "which lanes hold a
+value" or "which lanes are selected" is then a boolean tensor over the
+lanes; `ChoiceMap.mask(flag)` and the `Switch` node (one sub-map per
+branch, each masked by `idx == i`) carry the flags of the `mask` and
+`switch` combinators. The builder `ChoiceMap.builder` /
+`ChoiceMapBuilder` nests a value at an address: `C["x", "y"].set(v)`.
 """
 
 from types import EllipsisType
@@ -32,6 +37,7 @@ from typing import Any, Iterable
 
 import torch
 
+from genjax_tpu_torch.core.mask import Mask, _and, _not, _or
 from genjax_tpu_torch.core.pytree import Pytree, n_leaves
 from genjax_tpu_torch.core.typing import depth_of, plain
 
@@ -112,27 +118,9 @@ def _host_int(comp) -> int | None:
 
 
 # Flags are Python bools where the answer is known when the map or the
-# selection is built, and boolean tensors over the lanes otherwise.
-
-
-def _and(a, b):
-    if a is False or b is False:
-        return False
-    if a is True:
-        return b
-    return a if b is True else a & b
-
-
-def _or(a, b):
-    if a is True or b is True:
-        return True
-    if a is False:
-        return b
-    return a if b is False else a | b
-
-
-def _not(a):
-    return (not a) if isinstance(a, bool) else ~a
+# selection is built, and boolean tensors otherwise. A selection's flag
+# carries batch axes only, aligned to the innermost (its depth is its
+# rank).
 
 
 def _deeper(flag):
@@ -302,18 +290,19 @@ class StaticSel(Selection):
         if isinstance(self.addr, str) or isinstance(addr, str):
             return self.s if isinstance(addr, str) and addr == self.addr else NoneSel()
         if isinstance(addr, torch.Tensor) and addr.dim() == 1:
-            return LaneSel.build(self.s, addr == self.addr)
+            return MaskedSel.build(self.s, addr == self.addr)
         mine, theirs = _host_int(self.addr), _host_int(addr)
         if mine is not None and theirs is not None:
             return self.s if mine == theirs else NoneSel()
-        return LaneSel.build(self.s, torch.as_tensor(addr == self.addr))
+        return MaskedSel.build(self.s, torch.as_tensor(addr == self.addr))
 
 
 @Pytree.dataclass
-class LaneSel(Selection):
-    """A selection that holds where `flag` is true: `S[i, "x"]` asked
-    about every lane at once holds in lane `i`. The flag is a boolean
-    tensor over the lanes, aligned to the innermost batch axis."""
+class MaskedSel(Selection):
+    """A selection gated by a flag: it holds where `flag` is true.
+    `S[i, "x"]` asked about every lane at once holds in lane `i`; asked
+    with an index on the device, where the index is `i`. The flag is a
+    boolean tensor over the batch axes, aligned to the innermost."""
 
     s: Selection
     flag: Any
@@ -324,14 +313,14 @@ class LaneSel(Selection):
             return s
         if flag is False or isinstance(s, NoneSel):
             return NoneSel()
-        return LaneSel(s, flag)
+        return MaskedSel(s, flag)
 
     def check(self):
         return _and(self.flag, self.s.check())
 
     def get_subselection(self, addr) -> Selection:
         lanes = isinstance(addr, torch.Tensor) and addr.dim() == 1
-        return LaneSel.build(self.s(addr), _deeper(self.flag) if lanes else self.flag)
+        return MaskedSel.build(self.s(addr), _deeper(self.flag) if lanes else self.flag)
 
 
 @Pytree.dataclass
@@ -381,10 +370,10 @@ class ChmSel(Selection):
     c: "ChoiceMap"
 
     def check(self):
-        if self.c.get_value() is None:
+        v = self.c.get_value()
+        if v is None:
             return False
-        flag = self.c.get_flag()
-        return True if flag is None else flag
+        return v.flag if isinstance(v, Mask) else True
 
     def get_subselection(self, addr) -> Selection:
         if isinstance(addr, torch.Tensor) and addr.dim() == 1:
@@ -409,7 +398,7 @@ def statically_unmatchable_at_index_level(sel: Selection) -> bool:
             return statically_unmatchable_at_index_level(s1) and statically_unmatchable_at_index_level(s2)
         case AndSel(s1, s2):
             return statically_unmatchable_at_index_level(s1) or statically_unmatchable_at_index_level(s2)
-        case LaneSel(s, _):
+        case MaskedSel(s, _):
             return statically_unmatchable_at_index_level(s)
         case _:
             return False
@@ -424,6 +413,61 @@ class ChoiceMapNoValueAtAddress(Exception):
     pass
 
 
+class _ChoiceMapBuilder:
+    """The address path behind `C["x", "y"].set(v)`: each `[...]` appends
+    components, and the terminal methods nest a map at the path. A builder
+    reached from a map (`chm.at[...]`) merges the new entry over it, the
+    new entry first.
+
+    >>> from genjax_tpu_torch.core.choice_map import ChoiceMap, ChoiceMapBuilder as C
+    >>> c = C["a", "b"].set(3.0) | C["a", "b"].set(4.0)
+    >>> c["a", "b"], C["k"].switch(1, [ChoiceMap.kw(mu=0.5), ChoiceMap.kw(mu1=1.5)])["k", "mu1"]
+    (3.0, 1.5)
+    >>> ChoiceMap.kw(x=1.0).at["y"].set(2.0)["x"]
+    1.0
+    """
+
+    def __init__(self, base: "ChoiceMap | None", path: tuple = ()):
+        self.base = base
+        self.path = path
+
+    def __getitem__(self, addr) -> "_ChoiceMapBuilder":
+        return _ChoiceMapBuilder(self.base, self.path + _tuplize(addr))
+
+    def set(self, v) -> "ChoiceMap":
+        entry = ChoiceMap.entry(v, *_validate_addr(self.path))
+        return entry if self.base is None else entry | self.base
+
+    def update(self, f) -> "ChoiceMap":
+        """Apply `f` to what the path holds (its value, else its sub-map)
+        and store the result there."""
+        if self.base is None:
+            current = _empty
+        else:
+            sub = self.base(self.path)
+            held = sub.get_value()
+            current = sub if held is None else held
+        return self.set(f(current))
+
+    def n(self) -> "ChoiceMap":
+        return _empty
+
+    def v(self, v) -> "ChoiceMap":
+        return self.set(ChoiceMap.choice(v))
+
+    def from_mapping(self, pairs) -> "ChoiceMap":
+        return self.set(ChoiceMap.from_mapping(pairs))
+
+    def d(self, entries: dict) -> "ChoiceMap":
+        return self.set(ChoiceMap.d(entries))
+
+    def kw(self, **entries) -> "ChoiceMap":
+        return self.set(ChoiceMap.kw(**entries))
+
+    def switch(self, idx, branches) -> "ChoiceMap":
+        return self.set(ChoiceMap.switch(idx, branches))
+
+
 class ChoiceMap(Pytree):
     """A functional trie of addressed random choices.
 
@@ -435,14 +479,23 @@ class ChoiceMap(Pytree):
     >>> steps = ChoiceMap.kw(z=torch.tensor([3, 1, 4]))  # a Scan's choices, stacked
     >>> int(steps[2, "z"]), (1, "z") in steps, (0, "q") in ChoiceMap.d({(0, "q"): 1.0})
     (4, True, True)
+    >>> held = ChoiceMap.kw(x=torch.tensor(1.0)).mask(torch.tensor(False))["x"]  # a Mask
+    >>> float(held.value), bool(held.flag)
+    (1.0, False)
     """
+
+    builder = None  # a rootless `_ChoiceMapBuilder`, set below
 
     # -- abstract interface ------------------------------------------------
 
-    def filter(self, selection: Selection) -> "ChoiceMap":
+    def filter(self, selection: "Selection | Any") -> "ChoiceMap":
+        """The part of the map that `selection` selects; a flag instead of
+        a selection masks the whole map (`mask`)."""
         raise NotImplementedError
 
     def get_value(self) -> Any:
+        """The value at the root: a tensor or number, a `Mask` where it
+        holds under a flag only, or None."""
         raise NotImplementedError
 
     def get_inner_map(self, addr: AddressComponent) -> "ChoiceMap":
@@ -452,8 +505,8 @@ class ChoiceMap(Pytree):
         """The sub-maps at every index of `lanes` (`arange(N)` on the
         values' device) at once, as one map whose values carry the lane
         axis as one more batch axis: a stacked value is taken whole, a
-        value nested under an index becomes a `FlaggedChoice` that holds in
-        that lane alone."""
+        value nested under an index becomes a `Mask` that holds in that
+        lane alone."""
         raise NotImplementedError
 
     def static_is_empty(self) -> bool:
@@ -464,18 +517,12 @@ class ChoiceMap(Pytree):
         carries (0 where it is shared)."""
         return 0
 
-    def get_flag(self):
-        """None where the value at the root holds in every lane, else the
-        boolean tensor of the lanes in which it holds."""
-        return None
-
     def batched_leaves(self) -> list[int]:
         """The depth of each leaf, in `tree_leaves` order."""
         raise NotImplementedError
 
     def map_choices(self, f) -> "ChoiceMap":
-        """The same map with each `Choice` and `FlaggedChoice` node `c`
-        replaced by `f(c)`."""
+        """The same map with each `Choice` node `c` replaced by `f(c)`."""
         raise NotImplementedError
 
     # -- derived interface -------------------------------------------------
@@ -503,13 +550,18 @@ class ChoiceMap(Pytree):
             nested = Static.build({comp: nested}) if isinstance(comp, str) else Indexed.build(nested, comp)
         return nested
 
-    def flag_lanes(self, flag) -> "ChoiceMap":
-        """The same map, holding only in the lanes where `flag` is true."""
+    def mask(self, flag, depth: int | None = None) -> "ChoiceMap":
+        """The same map, holding only where `flag` is true. `depth` is the
+        number of batch axes the flag carries (read from its mark where
+        not given)."""
+        if depth is None:
+            depth = depth_of(flag)
+            flag = plain(flag)
         if flag is True:
             return self
         if flag is False:
             return _empty
-        return self.map_choices(lambda c: FlaggedChoice(c.v, _and(flag, True if c.get_flag() is None else c.get_flag()), c.batched))
+        return self.map_choices(lambda c: c.mask(flag, depth))
 
     # -- constructors ------------------------------------------------------
 
@@ -520,7 +572,10 @@ class ChoiceMap(Pytree):
     @staticmethod
     def choice(v: Any, batched: int = 0) -> "ChoiceMap":
         """A map holding `v` at the root. A value marked with
-        `per_particle` (or `batched=True`) carries the particle axis."""
+        `per_particle` (or `batched=True`) carries the particle axis; a
+        `Mask` keeps its own record."""
+        if isinstance(v, Mask):
+            return Choice.build(v)
         if isinstance(v, torch.Tensor):
             if v.dim() == 1 and v.shape[0] == 0:
                 return _empty  # a zero-length batch carries no choices
@@ -529,10 +584,7 @@ class ChoiceMap(Pytree):
                 return Choice(plain(v), max(int(batched), depth))
         return Choice(v, int(batched))
 
-    @staticmethod
-    def flagged(v: Any, flag: torch.Tensor, batched: int = 0) -> "ChoiceMap":
-        """A map holding `v` at the root in the lanes where `flag` is true."""
-        return FlaggedChoice(plain(v), flag, max(int(batched), depth_of(v)))
+    value = choice
 
     @staticmethod
     def entry(v: Any, *addrs: AddressComponent) -> "ChoiceMap":
@@ -557,6 +609,14 @@ class ChoiceMap(Pytree):
     def kw(**kwargs) -> "ChoiceMap":
         return ChoiceMap.d(kwargs)
 
+    @staticmethod
+    def switch(idx, chms: Iterable["ChoiceMap"], depth: int | None = None) -> "ChoiceMap":
+        """Branch `i` of `chms` where `idx == i`: a Python int picks one
+        branch when the map is built; an index tensor masks each branch
+        (`depth`: the batch axes the index carries, read from its mark
+        where not given)."""
+        return Switch.build(idx, chms, depth)
+
     # -- dunders -----------------------------------------------------------
 
     def __or__(self, other: "ChoiceMap") -> "ChoiceMap":
@@ -577,6 +637,10 @@ class ChoiceMap(Pytree):
 
     def __contains__(self, addr: Address) -> bool:
         return self.get_submap(addr).has_value()
+
+    @property
+    def at(self) -> _ChoiceMapBuilder:
+        return _ChoiceMapBuilder(self)
 
 
 def _index_value(v: Any, depth: int, idx) -> Any:
@@ -608,25 +672,66 @@ def _as_lanes(v: Any, depth: int, n: int, what: str) -> tuple[Any, int]:
 
 def _one_lane(v: Any, depth: int) -> tuple[Any, int]:
     """One lane's value seen from inside the lane level: the same in every
-    lane (a `FlaggedChoice` then says in which lane it holds)."""
+    lane (a `Mask` then says in which lane it holds)."""
     if not isinstance(v, torch.Tensor) or depth == 0:
         return v, 0
     return v.unsqueeze(depth), depth + 1
 
 
+def _flag_as_lanes(flag: Any, depth: int, n: int) -> tuple[Any, int]:
+    """A stacked value's flag seen from inside the lane level: its first
+    axis past the batch axes, where it has one, is the lane axis; a flag
+    without one is the same in every lane."""
+    if isinstance(flag, torch.Tensor) and flag.dim() > depth:
+        if flag.shape[depth] != n:
+            raise ValueError(f"a stacked mask: {flag.shape[depth]} flags along the indexed axis for {n} lanes")
+        return flag, depth + 1
+    return _one_lane(flag, depth)
+
+
 @Pytree.dataclass
 class Choice(ChoiceMap):
     """A choice map holding a single value at the root, with the record of
-    how many batch axes it carries."""
+    how many batch axes it carries. The value is a `Mask` where it holds
+    under a flag only (the mask keeps the record of its flag)."""
 
     v: Any
     batched: int = Pytree.static(default=0)
 
-    def filter(self, selection: Selection) -> ChoiceMap:
+    @staticmethod
+    def build(v: Any, batched: int = 0) -> ChoiceMap:
+        """A choice of `v`; a mask whose flag is a concrete bool collapses
+        to its value or to the empty map."""
+        if not isinstance(v, Mask):
+            return Choice(v, batched)
+        held = v.flatten()
+        if held is None:
+            return _empty
+        return Choice(held, v.depth)
+
+    def as_mask(self) -> Mask:
+        """The value as a `Mask` (with a True flag where it is plain)."""
+        if isinstance(self.v, Mask):
+            return self.v
+        return Mask(self.v, True, (self.batched,) * n_leaves(self.v), 0)
+
+    def filter(self, selection) -> ChoiceMap:
+        if not isinstance(selection, Selection):
+            return self.mask(selection)
         chosen = selection.check()
         if isinstance(chosen, bool):
             return self if chosen else _empty
-        return self.flag_lanes(chosen)
+        return self.mask(chosen, chosen.dim())
+
+    def mask(self, flag, depth: int | None = None) -> ChoiceMap:
+        if depth is None:
+            depth = depth_of(flag)
+            flag = plain(flag)
+        if flag is True:
+            return self
+        if flag is False:
+            return _empty
+        return Choice.build(Mask.build(self.as_mask(), flag, depth))
 
     def get_value(self) -> Any:
         return self.v
@@ -635,6 +740,8 @@ class Choice(ChoiceMap):
         return self.batched
 
     def batched_leaves(self) -> list[int]:
+        if isinstance(self.v, Mask):
+            return self.v.batched_leaves()
         return [self.batched] * n_leaves(self.v)
 
     def map_choices(self, f) -> ChoiceMap:
@@ -643,50 +750,40 @@ class Choice(ChoiceMap):
     def get_inner_map(self, addr) -> ChoiceMap:
         if isinstance(addr, str):
             return _empty
-        return Choice(_index_value(self.v, self.batched, addr), self.batched)
+        if not isinstance(self.v, Mask):
+            return Choice(_index_value(self.v, self.batched, addr), self.batched)
+        m = self.v
+        flag = m.flag
+        if isinstance(flag, torch.Tensor) and flag.dim() > m.flag_depth:
+            flag = _index_value(flag, m.flag_depth, addr)
+        return Choice.build(Mask(_index_value(m.value, self.batched, addr), flag, m.record, m.flag_depth))
 
     def at_lanes(self, lanes: torch.Tensor) -> ChoiceMap:
-        return Choice(*_as_lanes(self.v, self.batched, lanes.shape[0], "a stacked choice"))
+        n = lanes.shape[0]
+        if not isinstance(self.v, Mask):
+            return Choice(*_as_lanes(self.v, self.batched, n, "a stacked choice"))
+        v, depth = _as_lanes(self.v.value, self.batched, n, "a stacked choice")
+        flag, flag_depth = _flag_as_lanes(self.v.flag, self.v.flag_depth, n)
+        return Choice(Mask(v, flag, (depth,), flag_depth), depth)
 
+    def one_lane(self) -> "Choice":
+        """This choice as the value of one lane, seen from inside the lane
+        level (the same in every lane)."""
+        if not isinstance(self.v, Mask):
+            return Choice(*_one_lane(self.v, self.batched))
+        v, depth = _one_lane(self.v.value, self.batched)
+        flag, flag_depth = _one_lane(self.v.flag, self.v.flag_depth)
+        return Choice(Mask(v, flag, (depth,), flag_depth), depth)
 
-@Pytree.dataclass
-class FlaggedChoice(ChoiceMap):
-    """A value at the root that holds only in the lanes where `flag` is
-    true: what a constraint on lane `i` of a `Vmap` looks like from inside
-    the run over all lanes. The flag is aligned to the innermost batch
-    axis."""
-
-    v: Any
-    flag: torch.Tensor
-    batched: int = Pytree.static(default=0)
-
-    def filter(self, selection: Selection) -> ChoiceMap:
-        return self.flag_lanes(selection.check())
-
-    def get_value(self) -> Any:
-        return self.v
-
-    def get_flag(self):
-        return self.flag
-
-    def value_is_batched(self) -> int:
-        return self.batched
-
-    def batched_leaves(self) -> list[int]:
-        return [self.batched] * n_leaves(self.v) + [self.flag.dim()]
-
-    def map_choices(self, f) -> ChoiceMap:
-        return f(self)
-
-    def get_inner_map(self, addr) -> ChoiceMap:
-        if isinstance(addr, str):
-            return _empty
-        flag = self.flag if self.flag.dim() == 0 else _index_value(self.flag, self.flag.dim() - 1, addr)
-        return FlaggedChoice(_index_value(self.v, self.batched, addr), flag, self.batched)
-
-    def at_lanes(self, lanes: torch.Tensor) -> ChoiceMap:
-        v, depth = _as_lanes(self.v, self.batched, lanes.shape[0], "a stacked choice")
-        return FlaggedChoice(v, _deeper(self.flag), depth)
+    def pick_row(self, row: torch.Tensor, found) -> ChoiceMap:
+        """The row `row` (a 0-d index tensor) of the axis past the batch
+        axes, holding where `found` (a 0-d boolean tensor) is true."""
+        m = self.as_mask()
+        flag = m.flag
+        if isinstance(flag, torch.Tensor) and flag.dim() > m.flag_depth:
+            flag = _index_value(flag, m.flag_depth, row)
+        picked = Mask(_index_value(m.value, self.batched, row), flag, m.record, m.flag_depth)
+        return Choice.build(Mask.build(picked, found, 0))
 
 
 @Pytree.dataclass
@@ -711,7 +808,7 @@ class Indexed(ChoiceMap):
     def _fans_out(self) -> bool:
         return isinstance(self.addr, torch.Tensor) and self.addr.dim() == 1
 
-    def filter(self, selection: Selection) -> ChoiceMap:
+    def filter(self, selection) -> ChoiceMap:
         return self.c.filter(selection).extend(self.addr)
 
     def get_value(self) -> Any:
@@ -721,7 +818,7 @@ class Indexed(ChoiceMap):
         return self.c.batched_leaves() + [0]
 
     def map_choices(self, f) -> ChoiceMap:
-        return Indexed(self.c.map_choices(f), self.addr)
+        return Indexed.build(self.c.map_choices(f), self.addr)
 
     def get_inner_map(self, addr) -> ChoiceMap:
         if isinstance(addr, str):
@@ -732,39 +829,29 @@ class Indexed(ChoiceMap):
             mine, theirs = _host_int(self.addr), _host_int(addr)
             if mine is not None and theirs is not None:
                 return self.c if mine == theirs else _empty
-            return self.c.flag_lanes(torch.as_tensor(self.addr == addr))
+            return self.c.mask(torch.as_tensor(self.addr == addr), 0)
         # First hit among the stored indices: compare, take the winning
         # row, and hold only if there was one. No host read.
         hits = self.addr == addr
         row = torch.argmax(hits.to(torch.int8))
         found = hits.any()
-        return self.c.map_choices(
-            lambda c: FlaggedChoice(_index_value(c.v, c.batched, row), _and(found, True if c.get_flag() is None else c.get_flag()), c.batched)
-        )
+        return self.c.map_choices(lambda c: c.pick_row(row, found))
 
     def at_lanes(self, lanes: torch.Tensor) -> ChoiceMap:
         n = lanes.shape[0]
         if not self._fans_out():
-            inner = self.c.map_choices(lambda c: _relabel(c, *_one_lane(c.v, c.batched)))
-            return inner.flag_lanes(lanes == self.addr)
+            return self.c.map_choices(lambda c: c.one_lane()).mask(lanes == self.addr, 1)
         idx = self.addr.to(lanes.device)
         held = torch.zeros(n, dtype=torch.bool, device=lanes.device).index_fill_(0, idx, True)
 
         def scatter(c):
-            if c.get_flag() is not None:
+            if isinstance(c.v, Mask):
                 raise NotImplementedError("an index tensor over choices that hold in some lanes only")
             v, d = c.v, c.batched
             full = v.new_zeros(v.shape[:d] + (n,) + v.shape[d + 1 :]).index_copy_(d, idx, v)
-            return FlaggedChoice(full, held, d + 1)
+            return Choice(Mask(full, held, (d + 1,), 1), d + 1)
 
         return self.c.map_choices(scatter)
-
-
-def _relabel(c, v, depth: int):
-    """`c` holding `v` at `depth` instead, one lane level further in."""
-    if isinstance(c, FlaggedChoice):
-        return FlaggedChoice(v, _deeper(c.flag), depth)
-    return Choice(v, depth)
 
 
 @Pytree.dataclass
@@ -777,7 +864,9 @@ class Static(ChoiceMap):
     def build(children: dict) -> "Static":
         return Static({k: sub for k, sub in children.items() if not sub.static_is_empty()})
 
-    def filter(self, selection: Selection) -> ChoiceMap:
+    def filter(self, selection) -> ChoiceMap:
+        if not isinstance(selection, Selection):
+            return self.mask(selection)
         return Static.build({k: sub.filter(selection(k)) for k, sub in self.children.items()})
 
     def get_value(self) -> Any:
@@ -801,8 +890,64 @@ class Static(ChoiceMap):
         return Static.build({k: sub.map_choices(f) for k, sub in self.children.items()})
 
 
-def _is_leaf_choice(c) -> bool:
-    return isinstance(c, (Choice, FlaggedChoice))
+def _as_mask(v: Any, depth: int) -> Mask:
+    return v if isinstance(v, Mask) else Mask(v, True, (depth,) * n_leaves(v), 0)
+
+
+@Pytree.dataclass
+class Switch(ChoiceMap):
+    """Branch `i` of `chms` masked by `idx == i`: the choices of a `Switch`
+    trace whose index is a tensor (one branch per particle). `depth` is the
+    number of batch axes the index carries."""
+
+    idx: Any
+    chms: list
+    depth: int = Pytree.static(default=0)
+
+    @staticmethod
+    def build(idx, chm_iter: Iterable[ChoiceMap], depth: int | None = None) -> ChoiceMap:
+        branches = list(chm_iter)
+        if depth is None:
+            depth = depth_of(idx)
+            idx = plain(idx)
+        if isinstance(idx, int) and not isinstance(idx, bool):
+            return branches[idx]  # known when the map is built: no masks
+        return Switch._rebuild(idx, [b.mask(idx == i, depth) for i, b in enumerate(branches)], depth)
+
+    @staticmethod
+    def _rebuild(idx, branches: list, depth: int) -> ChoiceMap:
+        # A Switch whose every branch is empty holds no choices: collapse
+        # it, so that a filtered constraint does not read as non-empty.
+        if all(b.static_is_empty() for b in branches):
+            return _empty
+        return Switch(idx, branches, depth)
+
+    def filter(self, selection) -> ChoiceMap:
+        return Switch._rebuild(self.idx, [b.filter(selection) for b in self.chms], self.depth)
+
+    def static_is_empty(self) -> bool:
+        return all(b.static_is_empty() for b in self.chms)
+
+    def get_value(self) -> Any:
+        live = [_as_mask(v, b.value_is_batched()) for b in self.chms if (v := b.get_value()) is not None]
+        return Mask.or_n(*live) if live else None
+
+    def value_is_batched(self) -> int:
+        v = self.get_value()
+        return v.depth if isinstance(v, Mask) else 0
+
+    def get_inner_map(self, addr) -> ChoiceMap:
+        return Switch._rebuild(self.idx, [b.get_inner_map(addr) for b in self.chms], self.depth)
+
+    def at_lanes(self, lanes: torch.Tensor) -> ChoiceMap:
+        idx, depth = _one_lane(self.idx, self.depth)
+        return Switch._rebuild(idx, [b.at_lanes(lanes) for b in self.chms], depth)
+
+    def batched_leaves(self) -> list[int]:
+        return [self.depth] + [d for b in self.chms for d in b.batched_leaves()]
+
+    def map_choices(self, f) -> ChoiceMap:
+        return Switch._rebuild(self.idx, [b.map_choices(f) for b in self.chms], self.depth)
 
 
 @Pytree.dataclass
@@ -823,33 +968,36 @@ class Or(ChoiceMap):
             for k, sub in c2.children.items():
                 merged[k] = merged[k] | sub if k in merged else sub
             return Static.build(merged)
-        if isinstance(c1, Choice) and _is_leaf_choice(c2):
-            return c1
-        if isinstance(c1, FlaggedChoice) and _is_leaf_choice(c2):
+        if isinstance(c1, Choice) and isinstance(c2, Choice):
+            if not isinstance(c1.v, Mask):
+                return c1
             # The left value where it holds, else the right one; the union
             # holds where either does.
-            f1, f2 = c1.flag, c2.get_flag()
-            depth = max(c1.batched, c2.batched)
-            v1, v2 = _to_depth(c1.v, c1.batched, depth), _to_depth(c2.v, c2.batched, depth)
-            v = torch.where(f1.reshape(f1.shape + (1,) * (max(v1.dim(), v2.dim()) - depth)), v1, v2)
-            return Choice(v, depth) if f2 is None else FlaggedChoice(v, f1 | f2, depth)
+            return Choice.build(c1.as_mask() | c2.as_mask())
+        if isinstance(c1, Switch) and not isinstance(c2, Switch):
+            # Into each branch, so that the switch keeps its structure.
+            return Switch.build(c1.idx, [b | c2 for b in c1.chms], c1.depth)
+        if isinstance(c2, Switch) and not isinstance(c1, Switch):
+            return Switch.build(c2.idx, [c1 | b for b in c2.chms], c2.depth)
         return Or(c1, c2)
 
-    def filter(self, selection: Selection) -> ChoiceMap:
+    def filter(self, selection) -> ChoiceMap:
         return self.c1.filter(selection) | self.c2.filter(selection)
 
-    def get_value(self) -> Any:
-        left = self.c1.get_value()
-        return self.c2.get_value() if left is None else left
+    def _value(self) -> tuple[Any, int]:
+        left, right = self.c1.get_value(), self.c2.get_value()
+        if right is None:
+            return left, self.c1.value_is_batched()
+        if left is None:
+            return right, self.c2.value_is_batched()
+        union = _as_mask(left, self.c1.value_is_batched()) | _as_mask(right, self.c2.value_is_batched())
+        return (union.value if union.flag is True else union), union.depth
 
-    def _holder(self) -> ChoiceMap:
-        return self.c1 if self.c1.has_value() else self.c2
+    def get_value(self) -> Any:
+        return self._value()[0]
 
     def value_is_batched(self) -> int:
-        return self._holder().value_is_batched()
-
-    def get_flag(self):
-        return self._holder().get_flag()
+        return self._value()[1]
 
     def batched_leaves(self) -> list[int]:
         return self.c1.batched_leaves() + self.c2.batched_leaves()
@@ -864,10 +1012,6 @@ class Or(ChoiceMap):
         return self.c1.at_lanes(lanes) | self.c2.at_lanes(lanes)
 
 
-def _to_depth(v: torch.Tensor, depth: int, target: int) -> torch.Tensor:
-    """`v` (carrying the innermost `depth` batch axes) shaped to broadcast
-    against values of the same event shape that carry `target` of them."""
-    return v if depth in (0, target) else v.reshape((1,) * (target - depth) + v.shape)
-
-
 _empty = Static({})
+ChoiceMap.builder = _ChoiceMapBuilder(None)
+ChoiceMapBuilder = _ChoiceMapBuilder(_empty)

@@ -4,8 +4,7 @@ Counterpart of `genjax_tpu/core/gfi.py`: `simulate`, `assess`, `generate`
 and `importance`; `project`, `edit` and `update` with the `Update` edit
 request (`Regenerate` and `EmptyRequest` are in `core/requests.py`), and
 the postfix combinators (`gen_fn.vmap(in_axes=...)`, `.scan(n=...)`,
-`.repeat(n=...)`, `.map(f)`, ...; `switch`, `mask`, `mix` and `or_else`
-come later).
+`.repeat(n=...)`, `.map(f)`, `.switch(...)`, `.mask()`, ...).
 
 Where JAX takes a PRNG key, these methods take a `torch.Generator` (on
 the CPU or on a CUDA device); the sites of a model draw from it in
@@ -302,6 +301,48 @@ class GenerativeFunction(Generic[R], Pytree):
         from genjax_tpu_torch.combinators.scan import iterate_final
 
         return iterate_final(n=n)(self)
+
+    def masked_iterate(self) -> "GenerativeFunction":
+        """Variable-length `iterate`: per-step boolean flags gate each
+        step's score (a masked-out step adds nothing)."""
+        from genjax_tpu_torch.combinators.scan import masked_iterate
+
+        return masked_iterate()(self)
+
+    def masked_iterate_final(self) -> "GenerativeFunction":
+        """Variable-length `iterate_final` (see `masked_iterate`)."""
+        from genjax_tpu_torch.combinators.scan import masked_iterate_final
+
+        return masked_iterate_final()(self)
+
+    def mask(self) -> "GenerativeFunction":
+        """Prepend a boolean argument that decides existence: where it is
+        false the score is 0 and the return value a `Mask` whose flag is
+        false."""
+        from genjax_tpu_torch.combinators.mask import mask
+
+        return mask(self)
+
+    def or_else(self, gen_fn: "GenerativeFunction") -> "GenerativeFunction":
+        """A boolean branch: `(flag, self_args, else_args)` runs this
+        function where the flag holds, `gen_fn` otherwise."""
+        from genjax_tpu_torch.combinators.compose import or_else
+
+        return or_else(self, gen_fn)
+
+    def switch(self, *branches: "GenerativeFunction") -> "GenerativeFunction":
+        """A branch chosen at run time: `(idx, args_0, ..., args_n)` runs
+        branch `idx` (this function is branch 0)."""
+        from genjax_tpu_torch.combinators.switch import switch
+
+        return switch(self, *branches)
+
+    def mix(self, *fns: "GenerativeFunction") -> "GenerativeFunction":
+        """A mixture: the first argument is the component logits; traces
+        `"mixture_component"` and `"component_sample"`."""
+        from genjax_tpu_torch.combinators.compose import mix
+
+        return mix(self, *fns)
 
     def dimap(self, /, *, pre=lambda *args: args, post=lambda args, xformed, retval: retval, info=None):
         from genjax_tpu_torch.combinators.dimap import Dimap

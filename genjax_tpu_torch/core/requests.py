@@ -1,4 +1,5 @@
-"""Core edit requests: `EmptyRequest` and `Regenerate`.
+"""Core edit requests: `EmptyRequest`, `Regenerate` and
+`UnsupportedBackwardRequest`.
 
 Counterpart of part of `genjax_tpu/core/requests.py` (`Update` is in
 `core/gfi.py`). `DiffAnnotate` waits for the site-graph analysis.
@@ -7,7 +8,7 @@ Counterpart of part of `genjax_tpu/core/requests.py` (`Update` is in
 import torch
 
 from genjax_tpu_torch.core.choice_map import ChoiceMap, Selection
-from genjax_tpu_torch.core.concepts import Argdiffs, EditRequest, PrimitiveEditRequest
+from genjax_tpu_torch.core.concepts import Argdiffs, EditRequest, NotSupportedEditRequest, PrimitiveEditRequest
 from genjax_tpu_torch.core.diff import Diff
 from genjax_tpu_torch.core.gfi import Trace, Update
 from genjax_tpu_torch.core.pytree import Pytree
@@ -34,4 +35,16 @@ class Regenerate(PrimitiveEditRequest):
     selection: Selection
 
 
-__all__ = ["EmptyRequest", "Regenerate"]
+@Pytree.dataclass
+class UnsupportedBackwardRequest(EditRequest):
+    """The backward request of a move whose reverse is no single request
+    (a `Switch` edit whose branches' backward requests differ in kind).
+    The forward move and its weight are valid; running this one raises."""
+
+    reason: str = Pytree.static(default="")
+
+    def edit(self, rng, tr, argdiffs: Argdiffs):
+        raise NotSupportedEditRequest(f"This edit's backward request is not representable: {self.reason}")
+
+
+__all__ = ["EmptyRequest", "Regenerate", "UnsupportedBackwardRequest"]

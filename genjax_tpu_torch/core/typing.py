@@ -28,12 +28,11 @@ def device_of(*xs: Any, default: torch.device | str | None = None) -> torch.devi
 def as_value(v: Any, device: torch.device | str) -> torch.Tensor:
     """A constrained or assessed value as a tensor: tensors pass through
     untouched, Python bools become bool tensors and other Python numbers
-    float32 tensors on `device`."""
+    float32 tensors on `device`, each made by a fill on the device (a
+    copy from the host would synchronise with a CUDA device)."""
     if isinstance(v, torch.Tensor):
         return v
-    if isinstance(v, bool):
-        return torch.tensor(v, device=device)
-    return torch.tensor(v, dtype=DEFAULT_DTYPE, device=device)
+    return torch.full((), v, dtype=torch.bool if isinstance(v, bool) else DEFAULT_DTYPE, device=device)
 
 
 def host_scalar(v: Any) -> float | None:

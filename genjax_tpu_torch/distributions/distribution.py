@@ -32,6 +32,7 @@ from genjax_tpu_torch.core.choice_map import ChoiceMap, Selection
 from genjax_tpu_torch.core.concepts import NotSupportedEditRequest, Score, Weight
 from genjax_tpu_torch.core.diff import Diff
 from genjax_tpu_torch.core.gfi import GenerativeFunction, Trace, Update
+from genjax_tpu_torch.core.mask import Mask, flag_on
 from genjax_tpu_torch.core.pytree import Pytree, n_leaves
 from genjax_tpu_torch.core.requests import EmptyRequest, Regenerate
 from genjax_tpu_torch.core.typing import as_value, device_of, mark, plain
@@ -76,6 +77,17 @@ def _on_value(flag: torch.Tensor, value: torch.Tensor, depth: int) -> torch.Tens
     """A flag over the batch axes (aligned to the innermost) shaped to
     select whole events of `value`, which carries `depth` batch axes."""
     return flag.reshape(flag.shape + (1,) * (value.dim() - depth))
+
+
+def _site_flag(held: Mask) -> torch.Tensor:
+    """The flag of a masked value at a site: over batch axes only (one
+    answer per particle and lane, as a site's score has)."""
+    if held.flag.dim() > held.flag_depth:
+        raise ValueError(
+            f"a site's masked value has a flag over more than its batch axes (shape {tuple(held.flag.shape)}, "
+            f"depth {held.flag_depth})"
+        )
+    return held.flag
 
 
 @Pytree.dataclass
@@ -182,15 +194,17 @@ class Distribution(Generic[R], GenerativeFunction[R]):
             # Unconstrained: fresh draw, importance weight 1.
             w, v = self._fresh(rng, args, n, like)
             return self._trace(args, v, w, depth), torch.zeros((), device=rng.device)
-        held = as_value(held, rng.device)
-        flag = constraint.get_flag()
-        if flag is not None:
-            # Constrained in some lanes only: those hold the constraint and
-            # weigh its density, the others a fresh draw and weigh nothing.
+        if isinstance(held, Mask):
+            # Constrained where the flag holds only (some lanes, some
+            # particles): those hold the constraint and weigh its density,
+            # the others a fresh draw and weigh nothing.
+            flag = _site_flag(held)
             _, fresh = self._fresh(rng, args, n, like)
-            v = torch.where(_on_value(flag, fresh, depth), held.to(fresh.dtype), fresh)
+            value = as_value(held.value, rng.device).to(fresh.dtype)
+            v = torch.where(flag_on(flag, held.flag_depth, fresh, depth), value, fresh)
             tr = self._trace(args, v, self._density(rng, v, args), depth)
             return tr, torch.where(flag, tr.score, 0.0)
+        held = as_value(held, rng.device)
         # Constrained: the value is the constraint, stored as given (shared
         # unless it was marked per particle); the weight is its density.
         tr = self._trace(args, held, self._density(rng, held, args), constraint.value_is_batched())
@@ -198,12 +212,14 @@ class Distribution(Generic[R], GenerativeFunction[R]):
 
     def assess(self, sample: ChoiceMap, args: tuple, n=None, marked: bool = False) -> tuple[Score, R]:
         """With `marked`, the value comes back with the mark of its depth
-        (for a body that hands it on to a `Vmap`)."""
+        (for a body that hands it on to a `Vmap`). A masked value is scored
+        whatever its flag (JAX's unchecked `unmask`): a `Switch` scores
+        every branch and keeps the one its index names."""
         held = sample.get_value()
         if held is None:
             raise ValueError(f"assess of {type(self).__name__}: the sample holds no value.")
-        if sample.get_flag() is not None:
-            raise ValueError(f"assess of {type(self).__name__}: the sample holds a value in some lanes only.")
+        if isinstance(held, Mask):
+            held = held.value
         held = as_value(held, device_of(*args))
         batched = sample.value_is_batched()
         score = site_score(self._density(None, held, args), held, batched, args, self.param_event_extra)
@@ -242,23 +258,25 @@ class Distribution(Generic[R], GenerativeFunction[R]):
             winner, batched = trace.value, trace.batched
             discard, retdiff = ChoiceMap.empty(), Diff.no_change(winner)
         else:
-            winner = as_value(proposed, device_of(trace.value, trace.score))
+            masked = isinstance(proposed, Mask)
+            winner = as_value(proposed.value if masked else proposed, device_of(trace.value, trace.score))
             if isinstance(trace.value, torch.Tensor):
                 winner = winner.to(trace.value.dtype)  # a Python 2 for an integer site stays an index
             batched = constraint.value_is_batched()
-            flag = constraint.get_flag()
             if batched > trace.batched:
                 raise ValueError(
                     "Update: a per-particle value for a site that every particle shares; "
                     "an edit keeps the trace's particle-axis record."
                 )
-            if flag is not None:
-                # The lanes that the constraint holds take its value.
-                if flag.dim() > trace.batched:
+            if masked:
+                # Where the flag holds the constraint's value wins; the
+                # discard holds the old value there only.
+                flag = _site_flag(proposed)
+                if proposed.flag_depth > trace.batched:
                     raise ValueError("Update: a value for some lanes of a site that every lane shares")
-                winner = torch.where(_on_value(flag, trace.value, trace.batched), winner, trace.value)
+                winner = torch.where(flag_on(flag, proposed.flag_depth, trace.value, trace.batched), winner, trace.value)
                 batched = trace.batched
-                discard = ChoiceMap.flagged(trace.value, flag, trace.batched)
+                discard = trace.get_choices().mask(flag, proposed.flag_depth)
             else:
                 if trace.batched > batched:
                     lead = trace.value.shape[: trace.batched - batched]

@@ -1,7 +1,8 @@
 """MCMC drivers: the Metropolis-Hastings step and chain runners.
 
-Counterpart of part of `genjax_tpu/inference/mcmc.py`: `mh`, `mh_chain`,
-`share_chain_args` and `run_chains`. The Gibbs drivers come later.
+Counterpart of `genjax_tpu/inference/mcmc.py`: `mh`, `mh_chain`,
+`gibbs_sweep`, `gibbs_chain`, `enumerative_gibbs`, `share_chain_args` and
+`run_chains`.
 
 JAX runs one chain per `vmap` lane. Here a batch of C chains is one trace
 whose record (`Trace.batched_leaves`) marks the leaves that carry the
@@ -17,11 +18,13 @@ from typing import Any, Callable, TypeVar
 import torch
 import torch.utils._pytree as pytree
 
+from genjax_tpu_torch.core.choice_map import ChoiceMapBuilder
 from genjax_tpu_torch.core.concepts import EditRequest
 from genjax_tpu_torch.core.diff import Diff
-from genjax_tpu_torch.core.gfi import Trace
+from genjax_tpu_torch.core.gfi import Trace, Update
 from genjax_tpu_torch.core.requests import Regenerate
 from genjax_tpu_torch.core.staging import where_tree
+from genjax_tpu_torch.core.typing import per_particle
 
 R = TypeVar("R")
 
@@ -79,6 +82,86 @@ def mh_chain(
     return trace, pytree.tree_map(lambda *xs: torch.stack(xs), *out)
 
 
+def gibbs_sweep(rng: torch.Generator, trace: Trace[R], selections) -> Trace[R]:
+    """One sweep: an MH step with prior regeneration for each address
+    block of `selections`, in order (systematic-scan Metropolis within
+    Gibbs)."""
+    for sel in selections:
+        trace, _ = mh(rng, trace, Regenerate(sel))
+    return trace
+
+
+def gibbs_chain(
+    rng: torch.Generator,
+    trace: Trace[R],
+    selections,
+    n_sweeps: int,
+    collect: Callable[[Trace[R]], Any] | None = None,
+):
+    """`n_sweeps` Gibbs sweeps; `collect(trace)` after each, stacked along
+    a leading sweep axis (None without `collect`)."""
+    selections = tuple(selections)
+    out = []
+    for _ in range(n_sweeps):
+        trace = gibbs_sweep(rng, trace, selections)
+        if collect is not None:
+            out.append(collect(trace))
+    return trace, (pytree.tree_map(lambda *xs: torch.stack(xs), *out) if out else None)
+
+
+def enumerative_gibbs(rng: torch.Generator, trace: Trace[R], addr, values: torch.Tensor) -> Trace[R]:
+    """An exact Gibbs move on a discrete site: each candidate of `values`
+    (along axis 0) is scored by an `Update` weight, `w(v) = log p(trace
+    with addr=v) - log p(trace)`, so `softmax(w)` is the full conditional;
+    one value is drawn per chain and applied. Always accepted. `addr` is a
+    string or an address tuple.
+
+    The site must not decide the model's structure: enumerating a `Switch`
+    index makes `Update` simulate the newly active branch afresh, so the
+    weight is not the index's conditional (use the block `Regenerate` MH
+    move there).
+
+    Over a batch of C chains each candidate is one `Update` of all C
+    chains (a loop over the candidates, never over the chains), and the
+    draw is a Gumbel-argmax on the device.
+
+    >>> import torch
+    >>> import genjax_tpu_torch as gx
+    >>> @gx.gen
+    ... def model():
+    ...     z = gx.categorical(torch.log(torch.tensor([0.5, 0.5]))) @ "z"
+    ...     _ = gx.normal(torch.where(z == 0, -1.0, 1.0), 1.0) @ "y"
+    >>> tr, _ = model.importance(torch.Generator().manual_seed(0), gx.ChoiceMap.kw(y=0.9), (), n=8)
+    >>> new = gx.enumerative_gibbs(torch.Generator().manual_seed(1), tr, "z", torch.arange(2))
+    >>> new.get_choices()["z"].shape, bool(((new.get_choices()["z"] == 0) | (new.get_choices()["z"] == 1)).all())
+    (torch.Size([8]), True)
+    """
+    path = (addr,) if isinstance(addr, str) else tuple(addr)
+    argdiffs = Diff.no_change(trace.get_args())
+    n = trace.particle_count()
+    ws = candidate_weights(rng, trace, path, values)
+    gumbel = -torch.log(torch.empty(ws.shape, device=ws.device).exponential_(generator=rng))
+    idx = torch.argmax(ws + gumbel, dim=-1)
+    chosen = values.to(idx.device).index_select(0, idx.reshape(-1))
+    chosen = chosen.reshape(idx.shape + values.shape[1:])
+    new, _, _, _ = Update(ChoiceMapBuilder[path].set(chosen if n is None else per_particle(chosen))).edit(
+        rng, trace, argdiffs
+    )
+    return new
+
+
+def candidate_weights(rng: torch.Generator, trace: Trace[R], path: tuple, values: torch.Tensor) -> torch.Tensor:
+    """The `Update` weight of setting `path` to each candidate of `values`
+    (along axis 0): `(C, V)` over a batch of C chains, `(V,)` for one."""
+    argdiffs = Diff.no_change(trace.get_args())
+    n = trace.particle_count()
+    ws = []
+    for i in range(values.shape[0]):
+        _, w, _, _ = Update(ChoiceMapBuilder[path].set(values[i])).edit(rng, trace, argdiffs)
+        ws.append(w if n is None else w.expand(n))
+    return torch.stack(ws, dim=-1)
+
+
 def share_chain_args(traces: Trace[R], args: tuple) -> Trace[R]:
     """Give a chain batch one shared copy of the model arguments.
 
@@ -114,4 +197,12 @@ def run_chains(
     return final, pytree.tree_map(lambda x: x.movedim(0, 1) if x.dim() >= 2 else x, out)
 
 
-__all__ = ["mh", "mh_chain", "run_chains", "share_chain_args"]
+__all__ = [
+    "enumerative_gibbs",
+    "gibbs_chain",
+    "gibbs_sweep",
+    "mh",
+    "mh_chain",
+    "run_chains",
+    "share_chain_args",
+]

@@ -1,5 +1,5 @@
-"""Where the time goes on the particle, MCMC and combinator paths, on one
-CUDA card.
+"""Where the time goes on the particle, MCMC, combinator and branching
+paths, on one CUDA card.
 
 Traces each configuration that `chip_smoke.py` runs with `torch.profiler`
 (CUPTI device intervals) and prints, for each:
@@ -9,10 +9,13 @@ Traces each configuration that `chip_smoke.py` runs with `torch.profiler`
 - device busy: the union of the traced device intervals (kernels, copies,
   fills) of one profiled run;
 - idle share: `1 - busy / wall`;
-- device items and host kernel-launch calls per step (per trial for SIR,
-  per filter step for the filters, per leapfrog step for HMC, per MALA
-  sweep for polyreg, per scan step for the HMM unfold), and the largest
-  device items;
+- peak memory: the most device memory the unprofiled runs took above what
+  was allocated before them;
+- device items and host kernel-launch calls per step (per trial for SIR
+  and mixture SIR, per filter step for the filters, per leapfrog step for
+  HMC, per MALA sweep for polyreg, per scan step for the HMM unfold, per
+  MH step, jump sweep or Gibbs sweep on the branching path), and the
+  largest device items;
 - K1: the device kernels of the logsumexp kernel in the trace beside the
   launches its wrappers counted in the same run (one kernel per launch),
   and how many device items come from `torch.softmax`.
@@ -109,16 +112,21 @@ def device_and_host(fn, x: torch.Tensor, calls: int) -> tuple[float, float]:
 
 
 def trace(fn, steps: int) -> dict:
-    """Wall time of unprofiled runs of `fn`, then one profiled run."""
+    """Wall time of unprofiled runs of `fn`, the device memory they take at
+    their peak above what was allocated before them, then one profiled
+    run."""
     fn()
     torch.cuda.synchronize()
     walls = []
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(WALL_RUNS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() - base
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     before = k1_launches()
     with torch.profiler.profile(activities=activities) as prof:
@@ -131,7 +139,7 @@ def trace(fn, steps: int) -> dict:
     if not device:
         raise RuntimeError("the profiler saw no device interval; time with CUDA events instead")
     launches = sum(1 for e in events if e.device_type == cpu and "LaunchKernel" in e.name)
-    return summarize(device, launches, statistics.median(walls), steps, k1_launches=launched)
+    return {**summarize(device, launches, statistics.median(walls), steps, k1_launches=launched), "peak_mib": peak / 2**20}
 
 
 def configurations():
@@ -165,6 +173,12 @@ def configurations():
     def unfold():
         col = hmm.run_hmm_importance(rng, chain_model, xh, hm.initial_state(), hm.n_particles)
         return col.get_log_marginal_likelihood_estimate()
+
+    # The branching path's models are defined in `chip_smoke.py`, as the
+    # cookbook defines its own (this module runs from the repository root).
+    import chip_smoke
+
+    branching = chip_smoke.branching_configurations(gx, rng)
 
     return [
         (f"SIR beta-bernoulli K={SIR_PARTICLES}, one trial (importance, LML, one draw)", 1, sir_trial),
@@ -202,6 +216,7 @@ def configurations():
                 model=logreg.logistic_regression_vmap, ys_address=logreg.VMAP_YS,
             ),
         ),
+        *branching,
     ]
 
 
@@ -225,7 +240,7 @@ def main() -> None:
             f"[{card}] {label}: wall {r['wall_ms']:.3f} ms (median of {WALL_RUNS}), device busy "
             f"{r['device_busy_ms']:.3f} ms, idle {100 * r['idle_share']:.1f}%, "
             f"{r['device_items_per_step']:.1f} device items and {r['launch_calls_per_step']:.1f} "
-            f"launch calls per step; K1: {r['k1_device_kernels']} device kernels for {r['k1_launches']} "
+            f"launch calls per step; peak device memory {r['peak_mib']:.1f} MiB; K1: {r['k1_device_kernels']} device kernels for {r['k1_launches']} "
             f"launches; torch.softmax items: {r['softmax_items']}; largest: {largest}"
         )
     print(json.dumps({"card": card, "configurations": results}))

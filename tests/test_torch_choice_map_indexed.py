@@ -16,12 +16,12 @@ import genjax_tpu_torch as tgx
 from genjax_tpu.core.choice_map import statically_unmatchable_at_index_level as j_unmatchable
 from genjax_tpu_torch.core.choice_map import (
     ChoiceMapNoValueAtAddress,
-    FlaggedChoice,
     Indexed,
-    LaneSel,
+    MaskedSel,
     _validate_addr,
     statically_unmatchable_at_index_level,
 )
+from genjax_tpu_torch.core.mask import Mask
 
 torch.set_num_threads(1)
 
@@ -76,15 +76,15 @@ def test_entries_under_an_index_like_jax(query):
 
 def test_entries_under_a_device_index_hold_a_flag():
     t = TC.entry(torch.tensor(7.0), torch.tensor(2), "x")  # a 0-d tensor is compared on the device
-    hit, miss = t(torch.tensor(2))("x"), t(3)("x")
-    assert float(hit.get_value()) == 7.0 and hit.get_flag() is None or bool(hit.get_flag())
-    assert miss.static_is_empty() or not bool(miss.get_flag())
+    hit, miss = t(torch.tensor(2))["x"], t(3)("x")
+    assert float(hit) == 7.0 if not isinstance(hit, Mask) else float(hit.value) == 7.0 and bool(hit.flag)
+    assert miss.static_is_empty() or not bool(miss.get_value().flag)
     rows = TC.entry(torch.from_numpy(X[:2]), torch.tensor([3, 1]), "x")  # row 0 at index 3, row 1 at index 1
-    got = rows(torch.tensor(1))("x")
-    assert isinstance(got, FlaggedChoice) and bool(got.flag) and torch.equal(got.v, torch.from_numpy(X[1]))
-    assert not bool(rows(torch.tensor(0))("x").flag)
+    got = rows(torch.tensor(1))["x"]
+    assert isinstance(got, Mask) and bool(got.flag) and torch.equal(got.value, torch.from_numpy(X[1]))
+    assert not bool(rows(torch.tensor(0))["x"].flag)
     j = JC.entry(jnp.asarray(X[:2]), jnp.asarray([3, 1]), "x")
-    np.testing.assert_array_equal(got.v.numpy(), np.asarray(j[1, "x"].value))
+    np.testing.assert_array_equal(got.value.numpy(), np.asarray(j[1, "x"].value))
 
 
 def test_merge_extend_filter_like_jax():
@@ -127,7 +127,7 @@ def test_selections_with_index_components_like_jax(make):
 def test_selection_over_every_lane_at_once():
     lanes = torch.arange(4)
     one = TS[2, "x"].at_lanes(lanes)
-    assert isinstance(one, LaneSel) and one("x").check().tolist() == [False, False, True, False]
+    assert isinstance(one, MaskedSel) and one("x").check().tolist() == [False, False, True, False]
     assert one("y").check() is False
     assert TS[..., "x"].at_lanes(lanes)("x").check() is True
     assert (~TS[2, "x"]).at_lanes(lanes)("x").check().tolist() == [True, True, False, True]
@@ -142,16 +142,16 @@ def test_selection_over_every_lane_at_once():
 def test_choice_map_over_every_lane_at_once():
     lanes = torch.arange(4)
     stacked = TC.kw(x=torch.from_numpy(X)).at_lanes(lanes)("x")
-    assert stacked.value_is_batched() == 1 and stacked.get_flag() is None  # the lane axis is one more batch axis
-    one = TC.d({(2, "x"): torch.from_numpy(X[2])}).at_lanes(lanes)("x")
-    assert isinstance(one, FlaggedChoice) and one.flag.tolist() == [False, False, True, False]
-    two = TC.d({(0, "x"): torch.from_numpy(X[0]), (3, "x"): torch.from_numpy(X[3])}).at_lanes(lanes)("x")
+    assert stacked.value_is_batched() == 1 and not isinstance(stacked.get_value(), Mask)  # the lane axis is one more batch axis
+    one = TC.d({(2, "x"): torch.from_numpy(X[2])}).at_lanes(lanes)["x"]
+    assert isinstance(one, Mask) and one.flag.tolist() == [False, False, True, False] and one.flag_depth == 1
+    two = TC.d({(0, "x"): torch.from_numpy(X[0]), (3, "x"): torch.from_numpy(X[3])}).at_lanes(lanes)["x"]
     assert two.flag.tolist() == [True, False, False, True]
-    assert torch.equal(two.v[0], torch.from_numpy(X[0])) and torch.equal(two.v[3], torch.from_numpy(X[3]))
-    rows = TC.entry(torch.from_numpy(X[:2]), torch.tensor([3, 1]), "x").at_lanes(lanes)("x")
-    assert rows.flag.tolist() == [False, True, False, True] and torch.equal(rows.v[3], torch.from_numpy(X[0]))
+    assert torch.equal(two.value[0], torch.from_numpy(X[0])) and torch.equal(two.value[3], torch.from_numpy(X[3]))
+    rows = TC.entry(torch.from_numpy(X[:2]), torch.tensor([3, 1]), "x").at_lanes(lanes)["x"]
+    assert rows.flag.tolist() == [False, True, False, True] and torch.equal(rows.value[3], torch.from_numpy(X[0]))
     per_particle = TC.d({(1, "s"): tgx.per_particle(torch.arange(6.0))}).at_lanes(lanes)("s")
-    assert per_particle.v.shape == (6, 1) and per_particle.value_is_batched() == 2
+    assert per_particle.get_value().value.shape == (6, 1) and per_particle.value_is_batched() == 2
     with pytest.raises(ValueError, match="rows along the indexed axis"):
         TC.kw(x=torch.zeros(3)).at_lanes(lanes)
     sel = TC.d({(2, "x"): 1.0}).get_selection().at_lanes(lanes)("x").check()

@@ -222,7 +222,12 @@ def test_vmap_update_weight_and_discard(particles):
     _close(one.get_score(), ref[1])
     _close(one.get_choices()[1, "z"], np.broadcast_to(new_z, z[..., 1].shape))
     _close(one.get_choices()[0, "z"], z[..., 0])
-    _close(d_one[1, "z"], z[..., 1])  # the discarded value of the updated lane
+    # The discard holds the old value of the updated lane only (a Mask
+    # over the lanes, as JAX's vmap of the kernel's discard).
+    held = d_one["z"]
+    assert held.flag.tolist() == [i == 1 for i in range(N)]
+    _close(d_one[1, "z"].value, z[..., 1])
+    assert bool(d_one[1, "z"].flag) and not bool(d_one[0, "z"].flag)
     every, w_every, _, d_every = tr.update(_rng(), TC.kw(z=_t(new_all)))
     _close(w_every, ref[2])
     _close(every.get_score(), ref[3])

@@ -381,3 +381,105 @@ def test_repeat_on_the_card(cuda):
     after = new.get_choices()["x"]
     assert bool((after[:, 3] == moved).all()) and torch.equal(after[:, :3], xs[:, :3]) and torch.equal(after[:, 4:], xs[:, 4:])
     assert all(v.device.type == cuda.type for v in pytree.tree_leaves(new) if isinstance(v, torch.Tensor))
+
+
+def test_branching_path_on_the_card(cuda):
+    # Mixture SIR through `mix` (K=65,536): every leaf of the trace on the
+    # card, one K1 launch for the LML and one for the draw; then block-move
+    # MH through `Switch`, a reversible jump between its branches and
+    # `enumerative_gibbs` at C=1024 with PyTorch's sync debug mode set to
+    # raise: none of them synchronises.
+    import torch.utils._pytree as pytree
+
+    import genjax_tpu_torch as gx
+
+    C, B, S = gx.ChoiceMap, gx.ChoiceMapBuilder, gx.Selection.at
+    logits = torch.tensor([0.3, -0.2], device=cuda)
+
+    @gx.gen
+    def narrow():
+        return gx.normal(0.0, 1.0) @ "v"
+
+    @gx.gen
+    def wide():
+        return gx.normal(5.0, 2.0) @ "v"
+
+    @gx.gen
+    def mixture():
+        v = gx.mix(narrow, wide)(logits, (), ()) @ "m"
+        return gx.normal(v, 0.5) @ "y"
+
+    rng = torch.Generator(device=cuda).manual_seed(0)
+    col = gx.ImportanceK(gx.Target(mixture, (), C.kw(y=2.5)), k_particles=65_536).run_smc(rng)
+    tr = col.get_particles()
+    assert all(v.device.type == cuda.type for v in pytree.tree_leaves(tr) if isinstance(v, torch.Tensor))
+    before = fused_logsumexp.launches
+    lml = col.get_log_marginal_likelihood_estimate()
+    assert fused_logsumexp.launches == before + 1 and math.isfinite(float(lml))
+    before = fused_logsumexp.launches
+    drawn = col.sample_particle(rng).get_choices()["m", "mixture_component"]
+    assert fused_logsumexp.launches == before + 1 and int(drawn) in (0, 1)
+
+    @gx.gen
+    def shared():
+        mu = gx.normal(0.0, 1.0) @ "mu"
+        return (mu, mu)
+
+    @gx.gen
+    def apart():
+        return (gx.normal(0.0, 1.0) @ "mu1", gx.normal(0.0, 1.0) @ "mu2")
+
+    ys = torch.tensor([0.4, 0.1, 0.6, 0.3], device=cuda)
+
+    @gx.gen
+    def two_blocks(ys1, ys2):
+        m = gx.flip(0.5) @ "m"
+        means = gx.switch(shared, apart)(m.to(torch.int64), (), ()) @ "k"
+        _ = gx.normal(means[0][..., None] * torch.ones(4, device=cuda), 0.5) @ "y1"
+        _ = gx.normal(means[1][..., None] * torch.ones(4, device=cuda), 0.5) @ "y2"
+
+    @gx.gen
+    def aux_up():
+        _ = gx.normal(0.0, 0.7) @ "u"
+
+    @gx.gen
+    def aux_down():
+        return 0.0
+
+    up = gx.JumpProposal(
+        read=lambda chm: chm["k", "mu"].unmask(0.0), aux=aux_up,
+        involution=lambda mu, u: ((mu + u["u"], mu - u["u"]), C.empty()),
+        constraint=lambda p: B["m"].set(True) | B["k", "mu1"].set(p[0]) | B["k", "mu2"].set(p[1]),
+    )
+    down = gx.JumpProposal(
+        read=lambda chm: (chm["k", "mu1"].unmask(0.0), chm["k", "mu2"].unmask(0.0)), aux=aux_down,
+        involution=lambda p, u: ((p[0] + p[1]) / 2.0, C.kw(u=(p[0] - p[1]) / 2.0)),
+        constraint=lambda mu: B["m"].set(False) | B["k", "mu"].set(mu),
+    )
+
+    @gx.gen
+    def indicator():
+        z = gx.categorical(torch.zeros(2, device=cuda)) @ "z"
+        _ = gx.normal(torch.where(z == 0, -1.0, 1.0), 1.0) @ "y"
+
+    block = gx.Regenerate(S["m", "mixture_component"] | S["m", "component_sample", ...])
+    mix_chains, _ = mixture.importance(rng, C.kw(y=2.5), (), n=1024)
+    rj_chains, _ = two_blocks.importance(rng, C.kw(y1=ys, y2=-ys), (ys, -ys), n=1024)
+    gibbs_chains, _ = indicator.importance(rng, C.kw(y=0.9), (), n=1024)
+    values = torch.arange(2, device=cuda)
+
+    def moves():
+        a = gx.run_chains(rng, mix_chains, block, 3)[0]
+        b = gx.reversible_jump(rng, rj_chains, up, down, lambda chm: ~chm["m"])[0]
+        c = gx.enumerative_gibbs(rng, gibbs_chains, "z", values)
+        return a, b, c
+
+    moves()  # warm up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # a synchronising call raises
+    try:
+        a, b, c = moves()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert a.get_choices()["m", "mixture_component"].shape == (1024,)
+    assert b.get_choices()["m"].device.type == cuda.type and c.get_choices()["z"].device.type == cuda.type
