@@ -35,7 +35,19 @@ twin on the run's own weights; block-move MH through `Switch` at C=8192
 chains, reversible jump between the branches of the two-block model and
 `enumerative_gibbs` at the same width, each against its exact posterior
 and with 0 device synchronisations per step; each of the four timed and
-profiled. Every phase raises on failure; nothing is caught.
+profiled. Then the SMC path (`phase_smc`): S1 BASELINE config 3, the
+64-state HMM's bootstrap filter at K=10,000, T=50 with each of the four
+resamplers, its LML over 20 runs against the forward algorithm, one
+`logsumexp_ess` launch and one synchronisation per step; S2 the same HMM
+as a `scan` program under `SMCDriver` (extend, resample, rejuvenate),
+its LML over 10 runs against the forward algorithm; S3 the dense SMC
+round of `bench.py:477-531` at K=1,000,000 (LML, posterior mean and the
+resampled ESS against their closed forms, 1 `logsumexp` and 2
+`logsumexp_ess` launches per round); K1 held against its plain twin on
+S1's and S3's own weights; S4 `Importance(q=)`, `ImportanceK(q=)`,
+`ChangeTarget`, CSMC's `estimate_logpdf`, PMMH, particle Gibbs, FFBS and
+tempered SMC at their JAX tests' sizes against closed forms. Every phase
+raises on failure; nothing is caught.
 
 Run from the repository root, with one CUDA card visible:
 
@@ -45,6 +57,7 @@ The last two lines of standard output are one JSON object with the
 kernels' launch counts, errors and times, and one with the device.
 """
 
+import dataclasses
 import json
 import math
 import statistics
@@ -105,6 +118,14 @@ GIBBS_Y = 0.9
 GIBBS_SWEEPS = 10
 PROFILE_SWEEPS = 10  # the MH steps or sweeps of one profiled run
 BRANCH_RUNS = 3
+# The SMC path (`models/hmm.py::BenchConfig`, `models/conjugate.py::BenchConfig`):
+# S1 BASELINE config 3's filter with each resampler, S2 the HMM scan program
+# under SMCDriver, S3 the dense round of `bench.py:477-531`, S4 the other
+# drivers at their JAX tests' configurations.
+RESAMPLING = ("systematic", "multinomial", "stratified", "residual")
+SMC_FILTER_RUNS = 20
+SMC_DRIVER_RUNS = 10
+LG_Q, LG_R, LG_A = 0.5, 0.4, 0.8  # the linear-Gaussian SSM of the PMMH, PG and FFBS tests
 
 
 def check(ok: bool, what: str) -> None:
@@ -417,10 +438,12 @@ def phase_filter(ops, card: str) -> None:
           f"{BIG_FILTER_STEPS - 1} at T={BIG_FILTER_STEPS}; none in the resample branch or the final resample")
 
 
-def timed_runs(fn, runs: int) -> tuple[list[float], list]:
+def timed_runs(fn, runs: int, warm: bool = True) -> tuple[list[float], list]:
     """Host-clock ms of `runs` calls of `fn`, each between two device
-    synchronisations, after one untimed call; and the calls' results."""
-    fn()
+    synchronisations, after one untimed call (unless the caller has just
+    made one: `warm=False`); and the calls' results."""
+    if warm:
+        fn()
     times, results = [], []
     for _ in range(runs):
         torch.cuda.synchronize()
@@ -1097,6 +1120,375 @@ def phase_branching(gx, ops, card: str) -> None:
     print_profile(card, f"enumerative_gibbs ({PROFILE_SWEEPS} sweeps)", profiling.trace(profiles["P4"][2], PROFILE_SWEEPS))
 
 
+def counted(ops) -> tuple[int, int]:
+    return ops.fused_logsumexp.launches, ops.fused_logsumexp_ess.launches
+
+
+def k1_against_plain(ops, lw: torch.Tensor) -> tuple[float, float]:
+    """Both K1 entry points on `lw` (comparison launches, so the counts are
+    put back): each log-sum-exp against the float32 plain twin, and the
+    ESS against the twin's formula, `exp(-logsumexp(2 (x - logsumexp(x))))`,
+    evaluated in float64 on the same float32 inputs. The float32 twin rounds
+    `logsumexp(x)` to float32 before it subtracts it, which at |lse| ~ 200
+    (S1's weights at the last steps) moves its ESS by up to 2 |lse| 2^-24 ~
+    2.5e-5 relative, more than the kernel's own error. Returns the kernel's
+    largest |error| over max(1, |ref|), which `close` holds within 1e-5, and
+    the float32 twin's own ESS error on the same scale."""
+    before = counted(ops)
+    got, (got_lse, got_ess) = ops.fused_logsumexp(lw), ops.fused_logsumexp_ess(lw)
+    ops.fused_logsumexp.launches, ops.fused_logsumexp_ess.launches = before
+    ref, (ref_lse, twin_ess) = ops.logsumexp_plain(lw), ops.logsumexp_ess_plain(lw)
+    x = lw.double()
+    ref_ess = torch.exp(-torch.logsumexp(2.0 * (x - torch.logsumexp(x, 0)), 0))
+    worst = 0.0
+    for what, g, r in (("logsumexp", got, ref), ("logsumexp_ess lse", got_lse, ref_lse), ("logsumexp_ess ess", got_ess, ref_ess)):
+        ok, err = close(g, r)
+        check(ok, f"{what} on a run's own weights (N={lw.numel()}): {float(g)} vs plain {float(r)}")
+        worst = max(worst, err / max(1.0, abs(float(r))))
+    return worst, close(twin_ess, ref_ess)[1] / max(1.0, abs(float(ref_ess)))
+
+
+def within_se_density(values: list[float], exact: float, what: str, n_se: float = 5.0) -> str:
+    """An estimator unbiased for exp(exact) (an LML, a log density
+    estimate): the mean of exp(value - exact) is 1 within `n_se` SE."""
+    ratios = [math.exp(v - exact) for v in values]
+    return within_se(ratios, 1.0, f"{what} (exp(estimate - exact))", n_se)
+
+
+def lg_kalman(a: float, ys):
+    """The scalar linear-Gaussian SSM of the PMMH, particle Gibbs and FFBS
+    tests (z_0 ~ N(0, 1), z_t = a z_{t-1} + N(0, Q^2), y_t = z_t + N(0,
+    R^2)): (log p(y), filtered means and variances, predicted means and
+    variances), in float64."""
+    mu, p, ll, out = 0.0, 1.0, 0.0, []
+    for t, y in enumerate(ys):
+        if t:
+            mu, p = a * mu, a * a * p + LG_Q**2
+        mp, pp = mu, p
+        s = p + LG_R**2
+        ll += -0.5 * (math.log(2 * math.pi * s) + (y - mu) ** 2 / s)
+        k = p / s
+        mu, p = mu + k * (y - mu), (1 - k) * p
+        out.append((mu, p, mp, pp))
+    return (ll, *(list(c) for c in zip(*out)))
+
+
+def lg_rts(a: float, ys) -> tuple[list, list]:
+    """The exact smoothed means and variances."""
+    _, mf, pf, mp, pp = lg_kalman(a, ys)
+    ms, ps = list(mf), list(pf)
+    for t in range(len(ys) - 2, -1, -1):
+        c = pf[t] * a / pp[t + 1]
+        ms[t] = mf[t] + c * (ms[t + 1] - mp[t + 1])
+        ps[t] = pf[t] + c * c * (ps[t + 1] - pp[t + 1])
+    return ms, ps
+
+
+def lg_smoothing_paths(a: float, ys, n: int, seed: int):
+    """`n` exact draws from p(z | y): the Kalman filter, then backward
+    sampling (numpy, float64)."""
+    import numpy as np
+
+    _, mf, pf, _, pp = lg_kalman(a, ys)
+    rng = np.random.default_rng(seed)
+    out = np.empty((n, len(ys)))
+    out[:, -1] = mf[-1] + math.sqrt(pf[-1]) * rng.standard_normal(n)
+    for t in range(len(ys) - 2, -1, -1):
+        gain = pf[t] * a / pp[t + 1]
+        out[:, t] = mf[t] + gain * (out[:, t + 1] - a * mf[t]) + math.sqrt(pf[t] - gain * a * pf[t]) * rng.standard_normal(n)
+    return out
+
+
+def lg_data(T: int, seed: int) -> list[float]:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    z, ys = rng.standard_normal(), []
+    for t in range(T):
+        if t:
+            z = LG_A * z + LG_Q * rng.standard_normal()
+        ys.append(float(z + LG_R * rng.standard_normal()))
+    return ys
+
+
+def lg_models(gx):
+    """The PMMH and particle Gibbs tests' models: the parameter `a` is the
+    trailing argument."""
+
+    @gx.gen
+    def init(a):
+        z = gx.normal(0.0, 1.0) @ "z"
+        _ = gx.normal(z, LG_R) @ "y"
+        return z
+
+    @gx.gen
+    def step(z_prev, t, a):
+        z = gx.normal(a * z_prev, LG_Q) @ "z"
+        _ = gx.normal(z, LG_R) @ "y"
+        return z
+
+    return init, step
+
+
+def batch_means(chain: list[float], batches: int = 10) -> list[float]:
+    size = len(chain) // batches
+    return [statistics.fmean(chain[i * size : (i + 1) * size]) for i in range(batches)]
+
+
+def grid_posterior_mean(ys, lo: float = -1.5, hi: float = 2.5, n: int = 801) -> float:
+    """E[a | y] under a N(0, 1) prior, by quadrature over the Kalman
+    marginal."""
+    grid = [lo + (hi - lo) * i / (n - 1) for i in range(n)]
+    lp = [lg_kalman(a, ys)[0] - 0.5 * a * a for a in grid]
+    top = max(lp)
+    w = [math.exp(v - top) for v in lp]
+    return sum(a * wi for a, wi in zip(grid, w)) / sum(w)
+
+
+def phase_smc(gx, ops, card: str, dev: str = "cuda") -> None:
+    """The SMC path: S1 BASELINE config 3 (the 64-state HMM's bootstrap
+    filter at K=10k, T=50) with each resampler against the forward
+    algorithm; S2 the same HMM as the scan program under SMCDriver; S3 the
+    dense round of `bench.py:477-531` at K=1M against its closed forms;
+    S4 Importance / ImportanceK(q=) / ChangeTarget / CSMC, PMMH, PGAS,
+    FFBS and tempered SMC at their JAX tests' configurations against
+    closed forms. K1 is held against its plain twin on S1's and S3's own
+    weights."""
+    from genjax_tpu_torch import profiling
+    from genjax_tpu_torch.inference.exact_testbed import build_hmm_chain_model
+    from genjax_tpu_torch.models import conjugate, hmm
+
+    cfg = hmm.BenchConfig()
+    K, T, init = cfg.smc_particles, cfg.T, cfg.initial_state()
+    obs = cfg.data(dev)
+    exact = float(hmm.exact_log_marginal(cfg.hmm(), obs, init))
+    rng = torch.Generator(device=dev).manual_seed(11)
+    profiles = dict(zip(("S1", "S2", "S3"), profiling.smc_configurations(rng, dev)))
+
+    # S1: the filter with each resampler.
+    for method in RESAMPLING:
+        pf = hmm.hmm_filter(cfg.hmm(), init, K, method, dev)
+
+        def run():
+            before = counted(ops)
+            lml, z = pf.run(rng, obs)
+            return lml, z, tuple(a - b for a, b in zip(counted(ops), before))
+
+        times, results = timed_runs(run, SMC_FILTER_RUNS)
+        for lml, z, counts in results:
+            check(z.shape == (K,) and z.device.type == torch.device(dev).type,
+                  f"S1 {method}: final states {tuple(z.shape)} on {z.device}")
+            check(counts == (0, T - 1), f"S1 {method}: {counts} (logsumexp, logsumexp_ess) launches per filter, not (0, {T - 1})")
+        syncs = count_syncs(lambda: pf.run(rng, obs))
+        check(syncs <= T - 1, f"S1 {method}: {syncs} device synchronisations over {T - 1} steps")
+        ms = statistics.median(times)
+        print(f"S1 config-3 filter ({method}) K={K} T={T} " + within_se([float(r[0]) for r in results], exact,
+              "LML against the forward algorithm"))
+        print(f"[{card}] S1 filter ({method}) K={K} T={T}: {ms:.3f} ms/filter (median of {SMC_FILTER_RUNS}; host clock "
+              f"between syncs), {K * T / (ms * 1e-3):.4g} particle-steps/s; {syncs / (T - 1):.2f} device "
+              f"synchronisations and 1 K1 launch (logsumexp_ess) per step")
+    # K1 against its plain twin on the weights it reduces on the path: with
+    # the gate held shut, the weights collected after step t are the ones
+    # that step's `logsumexp_ess` reduced (collected after a resample that
+    # fired, they would be zeros).
+    _, _, lws = dataclasses.replace(pf, ess_threshold=0.0).run(rng, obs, collect=lambda z, lw: lw)
+    err1, twin1 = (max(e) for e in zip(*(k1_against_plain(ops, lws[t]) for t in range(1, T))))
+    print(f"K1 == plain on S1's own weights (the K={K} log weights that each of the {T - 1} steps of a {pf.resampling} "
+          f"run with the gate held shut reduced, spread {float((lws[-1].max() - lws[-1].min())):.1f} nats at the last): "
+          f"max |err| / max(1, |plain|) {err1:.3e} (tolerance 1e-5; the ESS against the twin's formula in float64, "
+          f"from which the float32 twin's own ESS is {twin1:.3e} off)")
+    print_profile(card, "S1 filter (systematic)", profiling.trace(profiles["S1"][2], profiles["S1"][1]))
+
+    # S2: the HMM scan program under SMCDriver.
+    model = build_hmm_chain_model(cfg.hmm(), T, dev)
+    driver = gx.smc.SMCDriver(n_particles=K)
+
+    def drive():
+        before = counted(ops)
+        col = hmm.run_hmm_smc(rng, model, obs, init, driver, cfg.rejuvenate_every)
+        lml = col.get_log_marginal_likelihood_estimate()
+        return lml, tuple(a - b for a, b in zip(counted(ops), before))
+
+    # A run takes seconds: the sync count's run is the timed runs' warm-up,
+    # and the profile is `profiling.py`'s alone.
+    syncs = count_syncs(drive)
+    check(syncs <= T - 1, f"S2: {syncs} device synchronisations over {T - 1} steps (the gate's alone would be {T - 1})")
+    times, results = timed_runs(drive, SMC_DRIVER_RUNS, warm=False)
+    ms = statistics.median(times)
+    print(f"S2 HMM scan program under SMCDriver K={K} T={T} " + within_se([float(r[0]) for r in results], exact,
+          "LML against the forward algorithm"))
+    print(f"[{card}] S2 SMCDriver K={K} T={T}: {ms:.1f} ms/run (median of {SMC_DRIVER_RUNS}: "
+          f"{', '.join(f'{t:.0f}' for t in times)}; host clock between syncs), {K * T / (ms * 1e-3):.4g} particle-steps/s; "
+          f"{syncs / (T - 1):.2f} device synchronisations per step; K1 launches per run (logsumexp, logsumexp_ess) "
+          f"{results[-1][1]}")
+
+    # S3: the dense round at a million particles.
+    c = conjugate.BenchConfig()
+    rdriver, target = c.driver(), c.target()
+
+    def one_round():
+        before = counted(ops)
+        out = conjugate.smc_round(rng, rdriver, target)
+        return (*out, tuple(a - b for a, b in zip(counted(ops), before)))
+
+    times, rounds = timed_runs(one_round, c.rounds)
+    for *_, counts in rounds:
+        check(counts == (1, 2), f"S3: {counts} (logsumexp, logsumexp_ess) launches per round, not (1, 2)")
+    ess_after = [float(r[3].get_ess()) for r in rounds]
+    check(all(abs(e - c.n_particles) <= 1e-3 * c.n_particles for e in ess_after),
+          f"S3: the resampled collection's ESS {min(ess_after)}..{max(ess_after)}, not K within 1e-3")
+    ess0 = statistics.fmean(float(r[1]) for r in rounds)
+    syncs = count_syncs(lambda: conjugate.smc_round(rng, rdriver, target))
+    check(syncs <= 1, f"S3: {syncs} device synchronisations per round (the gate's alone would be 1)")
+    col = rdriver.init(rng, target)
+    err3, twin3 = k1_against_plain(ops, col.get_log_weights())
+    del col
+    ms = statistics.median(times)
+    print(f"S3 dense round K={c.n_particles} " + within_se([float(r[0]) for r in rounds], c.exact_lml(), "LML") + "; "
+          + within_se([float(r[2]) for r in rounds], c.posterior_mean(), "posterior mean of x") +
+          f"; ESS after the resample {min(ess_after):.1f}..{max(ess_after):.1f} of {c.n_particles}")
+    del rounds
+    print(f"[{card}] S3 dense SMC round K={c.n_particles}: {ms:.3f} ms/round (median of {c.rounds}; host clock between "
+          f"syncs), importance ESS {ess0:.0f}/round = {ess0 / (ms * 1e-3):.4g} ESS/s; K1 launches per round: 1 logsumexp, "
+          f"2 logsumexp_ess; {syncs} device synchronisations per round; K1 == plain on the round's weights: |err| / "
+          f"max(1, |plain|) {err3:.3e} (tolerance 1e-5; the float32 twin's own ESS {twin3:.3e} off its formula in "
+          f"float64)")
+    print_profile(card, "S3 dense round", profiling.trace(profiles["S3"][2], 1))
+
+    phase_smc_drivers(gx, card, dev)
+
+
+def phase_smc_drivers(gx, card: str, dev: str = "cuda") -> None:
+    """S4: the other SMC drivers on the card, each at its JAX test's
+    configuration, against closed forms within 5 SE."""
+    from genjax_tpu_torch.inference.particle_gibbs import csmc_sweep
+    from genjax_tpu_torch.inference.pmmh import PMMH
+    from genjax_tpu_torch.inference.requests import GaussianDrift
+    from genjax_tpu_torch.inference.smc import ChangeTarget, Importance, ImportanceK
+    from genjax_tpu_torch.inference.smoothing import ffbs_sample, smoothing_clouds
+    from genjax_tpu_torch.inference.tempered import TemperedSMC
+
+    C, S = gx.ChoiceMap, gx.Selection.at
+    rng = torch.Generator(device=dev).manual_seed(12)
+    t0 = time.perf_counter()
+
+    @gx.gen
+    def model(s):
+        x = gx.normal(0.0, s) @ "x"
+        _ = gx.normal(x, 1.0) @ "y"
+        return x
+
+    def normal_lml(prior_sd: float) -> float:
+        var = prior_sd**2 + 1.0
+        return -0.5 / var - 0.5 * math.log(2 * math.pi * var)
+
+    t1, t2 = gx.Target(model, (1.0,), C.kw(y=1.0)), gx.Target(model, (2.0,), C.kw(y=1.0))
+
+    @gx.marginal()
+    @gx.gen
+    def q_exact(target):
+        _ = gx.normal(0.5, 1.0 / math.sqrt(2.0)) @ "x"
+
+    @gx.marginal()
+    @gx.gen
+    def q_wide(target):
+        _ = gx.normal(0.0, 1.5) @ "x"
+
+    retained = C.kw(x=torch.tensor(0.2, device=dev))
+    ws = torch.stack([Importance(t1, q_exact).run_smc(rng).get_log_weights()[0] for _ in range(50)])
+    on_device = ws.device.type == torch.device(dev).type
+    check(on_device and relative_error(ws, torch.full_like(ws, normal_lml(1.0))) <= 1e-5,
+          "Importance(q=exact posterior): every weight is p(y)")
+    lines = [
+        within_se([float(ImportanceK(t1, q_wide, k_particles=4000).log_marginal_likelihood_estimate(rng)) for _ in range(20)],
+                  normal_lml(1.0), "ImportanceK(q=) LML"),
+        within_se([float(ChangeTarget(ImportanceK(t1, k_particles=4000), t2).run_smc(rng).get_log_marginal_likelihood_estimate())
+                   for _ in range(20)], normal_lml(2.0), "ChangeTarget LML"),
+        within_se_density([float(ImportanceK(t1, k_particles=64).estimate_logpdf(rng, retained, t1)) for _ in range(200)],
+                          -0.5 * 0.09 / 0.5 - 0.5 * math.log(math.pi), "CSMC estimate_logpdf"),
+    ]
+    print("S4 " + "; ".join(lines))
+
+    # PMMH (tests/inference/test_pmmh.py): K=512, T=16.
+    init, step = lg_models(gx)
+    ys = lg_data(16, 0)
+    ys_t = torch.tensor(ys, device=dev)
+    pf = gx.BootstrapFilter(step, init, 512, obs_addr="y")
+    prior = lambda a: gx.normal.logpdf(a, 0.0, 1.0)  # noqa: E731
+    _, (thetas, lmls, accepts) = PMMH(pf, log_prior=prior, step_scales=0.25).run(rng, torch.tensor(0.5, device=dev), ys_t, 300)
+    check(thetas.device.type == torch.device(dev).type and bool(torch.isfinite(lmls).all()),
+          "PMMH: parameters off the device or LML not finite")
+    rate = float(accepts.float().mean())
+    check(0.05 < rate < 0.95, f"PMMH accept rate {rate}")
+    line = within_se(batch_means(thetas[60:].tolist()), grid_posterior_mean(ys), "PMMH posterior mean of a (batch means)")
+    print(f"S4 {line}; accept rate {rate:.3f}")
+
+    # PGAS (tests/inference/test_particle_gibbs.py): one sweep from each of
+    # 150 exact smoothing paths gives exact smoothing paths.
+    ys8 = lg_data(8, 2)
+    ms, ps = lg_rts(LG_A, ys8)
+    starts = torch.tensor(lg_smoothing_paths(LG_A, ys8, 150, 3), dtype=torch.float32, device=dev)
+    pf64 = gx.BootstrapFilter(step, init, 64, obs_addr="y")
+    a = torch.tensor(LG_A, device=dev)
+    ys8_t = torch.tensor(ys8, device=dev)
+    for ancestor_sampling in (True, False):
+        out = torch.stack([csmc_sweep(rng, pf64, ys8_t, p, (a,), ancestor_sampling=ancestor_sampling) for p in starts])
+        off = max(abs(m - e) / math.sqrt(v / len(starts)) for m, e, v in zip(out.double().mean(0).tolist(), ms, ps))
+        check(out.device.type == torch.device(dev).type and off < 5.0,
+              f"CSMC (ancestor sampling {ancestor_sampling}): {off:.2f} SE off the RTS means")
+        print(f"S4 CSMC sweep (ancestor sampling {ancestor_sampling}) K=64 T=8 from 150 exact smoothing paths: means per "
+              f"step within {off:.2f} SE of the RTS smoother's (limit 5)")
+
+    # FFBS (tests/inference/test_smoothing.py): K=1024 clouds, 512 paths,
+    # T=20; 16 independent runs, the mean path against the RTS means
+    # (the worst of 20 t statistics of 15 degrees of freedom).
+    @gx.gen
+    def init1():
+        z = gx.normal(0.0, 1.0) @ "z"
+        _ = gx.normal(z, LG_R) @ "y"
+        return z
+
+    @gx.gen
+    def step1(z_prev, t):
+        z = gx.normal(0.9 * z_prev, LG_Q) @ "z"
+        _ = gx.normal(z, LG_R) @ "y"
+        return z
+
+    ys20 = lg_data(20, 12)
+    ms20, _ = lg_rts(0.9, ys20)
+    pf1024 = gx.BootstrapFilter(step1, init1, 1024, obs_addr="y")
+    run_means = []
+    for _ in range(16):
+        _, clouds, lws = smoothing_clouds(pf1024, rng, torch.tensor(ys20, device=dev))
+        paths = ffbs_sample(rng, pf1024, clouds, lws, 512, torch.tensor(ys20, device=dev))
+        check(paths.shape == (512, 20) and paths.device.type == torch.device(dev).type, f"FFBS paths {tuple(paths.shape)}")
+        run_means.append(paths.double().mean(0).tolist())
+    worst = 0.0
+    for t in range(20):
+        col = [r[t] for r in run_means]
+        worst = max(worst, abs(statistics.fmean(col) - ms20[t]) / (statistics.stdev(col) / math.sqrt(len(col))))
+    check(worst < 5.0, f"FFBS: the smoothed means are {worst:.2f} SE off the RTS means")
+    print(f"S4 FFBS K=1024 M=512 T=20, 16 runs: smoothed means within {worst:.2f} SE of the RTS smoother's (limit 5)")
+
+    # Tempered SMC (tests/inference/test_tempered.py) with GaussianDrift and
+    # with MALA rejuvenation: K=512, 8 temperatures, 3 moves, 12 runs.
+    @gx.gen
+    def conj():
+        mu = gx.normal(0.0, 1.0) @ "mu"
+        _ = gx.normal(mu, 1.0) @ "y"
+
+    target = gx.Target(conj, (), C.kw(y=1.0))
+    betas = torch.linspace(0.0, 1.0, 8, device=dev)
+    for name, request in (("GaussianDrift", GaussianDrift(S["mu"], 0.6)), ("MALA", gx.MALA(S["mu"], 0.25))):
+        smc = TemperedSMC(n_particles=512, betas=betas, request=request, n_moves=3)
+        runs = [smc.run(rng, target) for _ in range(12)]
+        means = [float(torch.softmax(col.get_log_weights().double(), 0) @ col.get_particles().get_choices()["mu"].double())
+                 for col, _ in runs]
+        print(f"S4 tempered SMC with {name}: " + within_se(means, 0.5, "posterior mean of mu") + "; "
+              + within_se_density([float(z) for _, z in runs], normal_lml(1.0), "log Z"))
+    print(f"[{card}] S4 drivers: {time.perf_counter() - t0:.1f} s in all")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1128,6 +1520,7 @@ def main() -> None:
         "mcmc": drive(lambda: (phase_hmc(gx, card), phase_polyreg(gx, ops, card))),
         "combinator": drive(lambda: (phase_hmm_scan(gx, ops, card), phase_logreg_vmap(gx, card), phase_repeat(gx))),
         "branching": drive(lambda: phase_branching(gx, ops, card)),
+        "smc": drive(lambda: phase_smc(gx, ops, card)),
     }
     launches = {name: sum(p[name] for p in paths.values()) for name in ("logsumexp", "logsumexp_ess")}
     for name, count in paths["particle"].items():
@@ -1135,6 +1528,8 @@ def main() -> None:
     check(paths["mcmc"]["logsumexp"] > 0, "the MCMC path (polyreg) launched no logsumexp kernel")
     check(paths["combinator"]["logsumexp"] > 0, "the combinator path (the HMM unfold) launched no logsumexp kernel")
     check(paths["branching"]["logsumexp"] > 0, "the branching path (mixture SIR) launched no logsumexp kernel")
+    for name, count in paths["smc"].items():
+        check(count > 0, f"the SMC path launched no {name} kernel")
     print("kernel launches on the main paths: " + ", ".join(
         f"{name} {count} (" + ", ".join(f"{path} path {p[name]}" for path, p in paths.items()) + ")"
         for name, count in launches.items()))

@@ -1,5 +1,5 @@
-"""genjax_tpu_torch: the particle, MCMC, combinator and branching paths of
-genjax_tpu on PyTorch and CUDA.
+"""genjax_tpu_torch: the particle, SMC, MCMC, combinator and branching paths
+of genjax_tpu on PyTorch and CUDA.
 
 A port of `genjax_tpu` (JAX) to PyTorch, module for module
 (`genjax_tpu_torch/inference/smc.py` mirrors `genjax_tpu/inference/smc.py`).
@@ -55,28 +55,36 @@ from genjax_tpu_torch.distributions import (
     normal,
     uniform,
 )
+from genjax_tpu_torch import inference
 from genjax_tpu_torch.inference import (
     HMC,
     MALA,
+    Algorithm,
     BootstrapFilter,
     ImportanceK,
     JumpProposal,
+    Marginal,
     ParticleCollection,
+    SampleDistribution,
     Target,
     enumerative_gibbs,
     ess,
     gibbs_chain,
     gibbs_sweep,
+    marginal,
     mh,
     mh_chain,
+    requests,
     reversible_jump,
     run_chains,
+    smc,
 )
 from genjax_tpu_torch.lang import AddressReuse, MissingAddress, gen
 from genjax_tpu_torch.ops import logsumexp
 
 __all__ = [
     "AddressReuse",
+    "Algorithm",
     "BootstrapFilter",
     "ChoiceMap",
     "ChoiceMapBuilder",
@@ -91,6 +99,7 @@ __all__ = [
     "IndexRequest",
     "JumpProposal",
     "MALA",
+    "Marginal",
     "Mask",
     "MaskCombinator",
     "MissingAddress",
@@ -98,6 +107,7 @@ __all__ = [
     "Pytree",
     "Regenerate",
     "RepeatCombinator",
+    "SampleDistribution",
     "Scan",
     "Selection",
     "Switch",
@@ -121,9 +131,11 @@ __all__ = [
     "gibbs_chain",
     "gibbs_sweep",
     "iterate",
+    "inference",
     "iterate_final",
     "logsumexp",
     "map",
+    "marginal",
     "mask",
     "masked_iterate",
     "masked_iterate_final",
@@ -136,9 +148,11 @@ __all__ = [
     "per_particle",
     "reduce",
     "repeat",
+    "requests",
     "reversible_jump",
     "run_chains",
     "scan",
+    "smc",
     "switch",
     "uniform",
     "vmap",

@@ -40,7 +40,7 @@ from genjax_tpu_torch.core.diff import Diff
 from genjax_tpu_torch.core.gfi import GenerativeFunction, Trace, Update
 from genjax_tpu_torch.core.pytree import Pytree, n_leaves
 from genjax_tpu_torch.core.requests import EmptyRequest, Regenerate
-from genjax_tpu_torch.core.typing import batch_dims, depth_of, mark, plain
+from genjax_tpu_torch.core.typing import batch_dims, depth_of, device_of, mark, plain
 from genjax_tpu_torch.distributions.distribution import _drop
 from genjax_tpu_torch.lang.static import _recorded, marked_like
 
@@ -72,6 +72,17 @@ class _Steps:
         for v, d in zip(self.leaves, self.depths):
             if _is_tensor(v):
                 v = v.select(d, t) if isinstance(t, int) else v.index_select(d, t.reshape(1).to(v.device)).squeeze(d)
+                v = mark(v, d) if marks else v
+            out.append(v)
+        return pytree.tree_unflatten(out, self.spec)
+
+    def template(self, marks: bool = False):
+        """Zeros in the shape of one step's slice: what a run over zero
+        steps hands its kernel to learn the trace's structure."""
+        out = []
+        for v, d in zip(self.leaves, self.depths):
+            if _is_tensor(v):
+                v = v.new_zeros(v.shape[:d] + v.shape[d + 1 :])
                 v = mark(v, d) if marks else v
             out.append(v)
         return pytree.tree_unflatten(out, self.spec)
@@ -234,11 +245,26 @@ class ScanTrace(Generic[Carry, Y], Trace[tuple[Carry, Y]]):
 
 @Pytree.dataclass
 class VectorRequest(PrimitiveEditRequest):
-    """One sub-request per step, as a tuple (the backward request of a
-    re-scan `Regenerate`: the steps' requests differ in structure where
-    the selection names one step, so they are not stacked)."""
+    """A sub-request for every step: one stacked request, whose tensor
+    leaves carry the step axis right behind their batch axes (step `t`
+    gets slice `t` of every leaf, as in JAX), or a tuple of per-step
+    requests (the backward request of a re-scan `Regenerate`: the steps'
+    requests differ in structure where the selection names one step, so
+    they are not stacked)."""
 
-    request: tuple
+    request: Any
+
+    def at_step(self, t: int) -> EditRequest:
+        """The sub-request of step `t`."""
+        if isinstance(self.request, (tuple, list)):
+            return self.request[t]
+        if isinstance(self.request, Update):
+            # A choice map keeps the record of its leaves' batch axes.
+            return Update(_step(self.request.constraint, t))
+        leaves, spec = pytree.tree_flatten(self.request)
+        return pytree.tree_unflatten(
+            [mark(v.select(depth_of(v), t), depth_of(v)) if _is_tensor(v) else v for v in leaves], spec
+        )
 
 
 @Pytree.dataclass
@@ -271,6 +297,14 @@ class Scan(Generic[Carry, Y], GenerativeFunction[tuple[Carry, Y]]):
     def simulate(self, rng, args: tuple, n=None) -> ScanTrace[Carry, Y]:
         return self.generate(rng, ChoiceMap.empty(), args, n)[0]
 
+    def _no_steps(self, rng, carry, steps: "_Steps", n) -> Trace:
+        """The kernel's trace stacked over zero steps: the kernel runs once
+        on zeros, on a scratch generator (the caller's stream is untouched),
+        for the structure and record of its trace alone."""
+        scratch = torch.Generator(device=rng.device).manual_seed(0)
+        tr = self.kernel_gen_fn.simulate(scratch, (carry, steps.template(True)), n)
+        return _Buffers(tr, 0).stacked()
+
     def generate(self, rng, constraint: ChoiceMap, args: tuple, n=None, like=None) -> tuple[ScanTrace[Carry, Y], Weight]:
         carry, xs = args
         if like is None:
@@ -280,10 +314,14 @@ class Scan(Generic[Carry, Y], GenerativeFunction[tuple[Carry, Y]]):
             args_plain, args_record = _recorded(args)[0], like.args_batched
             n_carry = n_leaves(carry)
             steps = _Steps(args_plain[1], self.length, like.args_record()[n_carry:])
-            carry = _carry_like(args_plain[0], _step(like.inner, 0).get_args()[0])
+            if steps.length:
+                carry = _carry_like(args_plain[0], _step(like.inner, 0).get_args()[0])
         length = steps.length
         if length == 0:
-            raise NotImplementedError("scan over zero steps")
+            # No steps: the carry passes through and the score is 0.
+            inner = self._no_steps(rng, carry, steps, n)
+            weight = torch.zeros(batch_dims(n), device=rng.device)
+            return ScanTrace.build(self, inner, args_plain, args_record, _recorded(carry)[0], 0), weight
         learned = None if like is None else like.inner  # a kernel trace with the settled record
         previous, pending, buffers = None, [], None
         weight = torch.zeros(batch_dims(n), device=rng.device)
@@ -318,14 +356,21 @@ class Scan(Generic[Carry, Y], GenerativeFunction[tuple[Carry, Y]]):
         carry, xs = args
         steps = _Steps(xs, self.length)
         marks = n is not None
+        if steps.length == 0:
+            scratch = torch.Generator(device=device_of(*pytree.tree_leaves(args), default="cpu"))
+            inner = self._no_steps(scratch, carry, steps, n)
+            ys = inner.get_retval()[1]
+            record = inner.retval_record()[n_leaves(inner.get_retval()[0]) :]
+            score = torch.zeros_like(plain(inner.get_score()).sum(-1))
+            if marked:
+                return score, (carry, marked_like(ys, record))
+            return score, (_recorded(carry)[0], ys)
         total, ys = None, []
         for t in range(steps.length):
             sub = sample if sample.static_is_empty() else sample.get_submap(t)
             score, (carry, y) = self.kernel_gen_fn.assess(sub, (carry, steps.at(t, marks)), n, marks)
             total = score if total is None else total + score
             ys.append(y)
-        if not ys:
-            raise NotImplementedError("scan over zero steps")
         record = [depth_of(v) for v in pytree.tree_leaves(ys[-1])]
         stacked = _stack([_recorded(y)[0] for y in ys], record)
         if marked:
@@ -376,7 +421,9 @@ class Scan(Generic[Carry, Y], GenerativeFunction[tuple[Carry, Y]]):
             if buffers is None:
                 buffers = _Buffers(new, steps.length)
             buffers.write(t, new)
-        new_trace = ScanTrace.build(self, buffers.stacked(), primals, trace.args_batched, carry, steps.length)
+        # Over zero steps nothing is edited: the empty stack stays.
+        inner = trace.inner if buffers is None else buffers.stacked()
+        new_trace = ScanTrace.build(self, inner, primals, trace.args_batched, carry, steps.length)
         return new_trace, weight, Diff.unknown_change(new_trace.retval), bwds
 
     def edit_update(self, rng, trace, constraint: ChoiceMap, argdiffs, n=None):
@@ -392,11 +439,11 @@ class Scan(Generic[Carry, Y], GenerativeFunction[tuple[Carry, Y]]):
         new_trace, w, retdiff, bwds = self._rescan_edit(rng, trace, lambda t: Regenerate(selection(t)), argdiffs, n)
         return new_trace, w, retdiff, VectorRequest(tuple(bwds))
 
-    def _rescan_vector_edit(self, rng, trace, requests, argdiffs, n=None):
-        """Apply a vector request: step `t` gets the `t`-th sub-request."""
-        if len(requests) != trace.scan_length:
+    def _rescan_vector_edit(self, rng, trace, request: VectorRequest, argdiffs, n=None):
+        """Apply a vector request: step `t` gets its `t`-th sub-request."""
+        if isinstance(request.request, (tuple, list)) and len(request.request) != trace.scan_length:
             raise ValueError("VectorRequest: one sub-request per step")
-        new_trace, w, retdiff, bwds = self._rescan_edit(rng, trace, lambda t: requests[t], argdiffs, n)
+        new_trace, w, retdiff, bwds = self._rescan_edit(rng, trace, request.at_step, argdiffs, n)
         return new_trace, w, retdiff, VectorRequest(tuple(bwds))
 
     def edit_index(self, rng, trace: ScanTrace, idx, request: EditRequest, argdiffs, n=None):
@@ -477,8 +524,8 @@ class Scan(Generic[Carry, Y], GenerativeFunction[tuple[Carry, Y]]):
                 return self.edit_regenerate(rng, trace, selection, argdiffs, n)
             case IndexRequest(idx, request):
                 return self.edit_index(rng, trace, idx, request, argdiffs, n)
-            case VectorRequest(request):
-                return self._rescan_vector_edit(rng, trace, request, argdiffs, n)
+            case VectorRequest():
+                return self._rescan_vector_edit(rng, trace, edit_request, argdiffs, n)
             case EmptyRequest():
                 return edit_request.edit(rng, trace, argdiffs)
             case _:
@@ -493,7 +540,13 @@ def _carry_like(carry: Any, stored: Any) -> Any:
     out = []
     for c, ref in zip(leaves, pytree.tree_leaves(stored)):
         if _is_tensor(ref) and (not _is_tensor(c) or c.shape != ref.shape):
-            c = torch.as_tensor(c, dtype=ref.dtype, device=ref.device).expand(ref.shape)
+            # A Python number becomes a tensor by a fill on the device: a
+            # copy from the host would synchronise with a CUDA device.
+            if _is_tensor(c):
+                c = c.to(device=ref.device, dtype=ref.dtype)
+            else:
+                c = torch.full((), c, dtype=ref.dtype, device=ref.device)
+            c = c.expand(ref.shape)
         out.append(c)
     return pytree.tree_unflatten(out, spec)
 

@@ -103,9 +103,21 @@ class SwitchTrace(Generic[R], Trace[R]):
         return self.score
 
     def get_inner_trace(self, address):
-        known = static_index(self.get_idx())
+        """The subtrace at `address` of the branch the index names. A 0-d
+        index tensor on the CPU is read directly; one on a device costs one
+        read of that device (a synchronisation), which is no matter off the
+        hot path. An index with a batch axis names a branch per row, so no
+        one subtrace: read such a trace through `get_choices()`, whose
+        `Switch` node selects per row."""
+        idx = self.get_idx()
+        known = static_index(idx)
+        if known is None and isinstance(idx, torch.Tensor) and idx.dim() == 0:
+            known = int(idx)
         if known is None:
-            raise NotImplementedError("a Switch trace with an index tensor names no one subtrace")
+            raise NotImplementedError(
+                "a Switch trace whose index has a batch axis names no one subtrace; read its choices through "
+                "get_choices(), whose Switch node selects each row's branch"
+            )
         return self.subtraces[known].get_inner_trace(address)
 
     def args_record(self) -> list[int]:

@@ -58,9 +58,10 @@ def _check_indexable(selection: Selection, where: str) -> None:
 
 
 def _axes_per_leaf(in_axes: Any, tree: Any) -> list:
-    """`in_axes` (an int or None for everything, or a tuple, list or dict
-    that follows the arguments' structure as far as it goes) spread to one
-    axis per leaf of `tree`."""
+    """`in_axes` (an int or None for everything, or a pytree prefix of the
+    arguments: a tuple, list, dict or `Pytree` dataclass that follows their
+    structure as far as it goes) spread to one axis per leaf of `tree`. A
+    dataclass's fields are taken in the order of its flatten."""
     if in_axes is None or isinstance(in_axes, int):
         return [in_axes] * n_leaves(tree)
     if isinstance(in_axes, (tuple, list)):
@@ -69,6 +70,11 @@ def _axes_per_leaf(in_axes: Any, tree: Any) -> list:
         return [ax for a, t in zip(in_axes, tree) for ax in _axes_per_leaf(a, t)]
     if isinstance(in_axes, dict):
         return [ax for k, t in tree.items() for ax in _axes_per_leaf(in_axes[k], t)]
+    if isinstance(in_axes, Pytree):
+        axes = pytree._broadcast_to_and_flatten(in_axes, pytree.tree_structure(tree))
+        if axes is None:
+            raise ValueError(f"vmap: in_axes {in_axes!r} does not match the structure of the arguments")
+        return axes
     raise TypeError(f"vmap: in_axes holds {in_axes!r}")
 
 

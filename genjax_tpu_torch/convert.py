@@ -101,9 +101,15 @@ def particle_collection(
     log_weights: np.ndarray,
     device: torch.device | str = "cuda",
     observations: dict | None = None,
+    is_valid: Any = True,
+    kind: type | None = None,
 ) -> ParticleCollection:
-    """A `ParticleCollection` of the particles `choices` (K rows per
-    address) and the shared `observations`, with `log_weights`."""
+    """A JAX `ParticleCollection` carried across: the particles `choices`
+    (K rows per address, stacked per step or lane for a combinator, as
+    `np.asarray(col.get_particles().get_choices()[addr])` holds them), the
+    shared `observations`, `log_weights` and `is_valid` (a numpy bool or a
+    Python one). The traces are rebuilt through `trace` (`kind` as there)."""
     lw = tensor(log_weights, device)
-    particles = static_trace(gen_fn, args, choices, lw.shape[0], device, observations)
-    return ParticleCollection(particles, lw)
+    particles = trace(gen_fn, args, choices, lw.shape[0], device, observations, kind)
+    valid = is_valid if isinstance(is_valid, bool) else tensor(is_valid, device)
+    return ParticleCollection(particles, lw, valid)

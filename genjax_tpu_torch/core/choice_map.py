@@ -844,12 +844,25 @@ class Indexed(ChoiceMap):
         idx = self.addr.to(lanes.device)
         held = torch.zeros(n, dtype=torch.bool, device=lanes.device).index_fill_(0, idx, True)
 
+        def spread(v, d):
+            """The rows of `v` (along its first axis past `d` batch axes)
+            put in the lanes they are indexed by; zeros in the others."""
+            return v.new_zeros(v.shape[:d] + (n,) + v.shape[d + 1 :]).index_copy_(d, idx, v)
+
         def scatter(c):
-            if isinstance(c.v, Mask):
-                raise NotImplementedError("an index tensor over choices that hold in some lanes only")
-            v, d = c.v, c.batched
-            full = v.new_zeros(v.shape[:d] + (n,) + v.shape[d + 1 :]).index_copy_(d, idx, v)
-            return Choice(Mask(full, held, (d + 1,), 1), d + 1)
+            if not isinstance(c.v, Mask):
+                v, d = c.v, c.batched
+                return Choice(Mask(spread(v, d), held, (d + 1,), 1), d + 1)
+            # A row that holds under its own flag: the lane holds where it
+            # is indexed AND that row's flag holds (JAX's `Mask.build` of
+            # the indexed row with the found flag).
+            m, d = c.v, c.batched
+            flag, fd = m.flag, m.flag_depth
+            if flag.dim() > fd:
+                lanes_flag = spread(flag, fd)  # one flag per row; false where nothing is indexed
+            else:
+                lanes_flag = flag.unsqueeze(fd) & held  # one flag for every row
+            return Choice(Mask(spread(m.value, d), lanes_flag, (d + 1,), fd + 1), d + 1)
 
         return self.c.map_choices(scatter)
 

@@ -192,6 +192,21 @@ class GenerativeFunction(Generic[R], Pytree):
         """Alias for `generate` (Gen's traditional name)."""
         return self.generate(rng, constraint, args, n, like)
 
+    def propose(
+        self, rng: torch.Generator, args: Arguments, n: int | None = None
+    ) -> tuple[ChoiceMap, Score, R]:
+        """Sample and return `(choices, score, retval)`: the shape a
+        proposal distribution takes. With `n`, `n` proposals at once.
+
+        >>> import torch
+        >>> import genjax_tpu_torch as gx
+        >>> chm, score, v = gx.normal.propose(torch.Generator().manual_seed(0), (0.0, 1.0))
+        >>> bool(chm.get_value() == v)
+        True
+        """
+        tr = self.simulate(rng, args, n)
+        return tr.get_choices(), tr.get_score(), tr.get_retval()
+
     def project(self, rng: torch.Generator, trace: Trace[R], selection: Selection) -> Weight:
         """The part of the trace's score that the selected addresses
         contribute."""

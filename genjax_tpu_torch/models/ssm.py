@@ -1,4 +1,4 @@
-"""Nonlinear state-space model, filtered with systematic resampling.
+"""Nonlinear state-space model, filtered by the bootstrap particle filter.
 
 Counterpart of `genjax_tpu/models/ssm.py`:
 `z_t = a z_{t-1} + 0.5 sin(z_{t-1}) + eps`, `y_t = z_t + nu` (observed).
@@ -45,10 +45,11 @@ def run_bootstrap_filter(
     rng: torch.Generator,
     observations: torch.Tensor,
     n_particles: int = 10_000,
+    resampling: str = "systematic",
     **kwargs,
 ):
-    """Particle-filter the observation sequence with systematic
-    resampling; returns (LML, final z)."""
+    """Particle-filter the observation sequence with the named resampler
+    (`smc.RESAMPLERS`); returns (LML, final z)."""
     init_model, step_model = make_ssm_models(**kwargs)
-    pf = BootstrapFilter(step_model, init_model, n_particles, obs_addr="y")
+    pf = BootstrapFilter(step_model, init_model, n_particles, obs_addr="y", resampling=resampling)
     return pf.run(rng, observations)

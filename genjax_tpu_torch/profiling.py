@@ -1,4 +1,4 @@
-"""Where the time goes on the particle, MCMC, combinator and branching
+"""Where the time goes on the particle, MCMC, combinator, branching and SMC
 paths, on one CUDA card.
 
 Traces each configuration that `chip_smoke.py` runs with `torch.profiler`
@@ -14,8 +14,9 @@ Traces each configuration that `chip_smoke.py` runs with `torch.profiler`
 - device items and host kernel-launch calls per step (per trial for SIR
   and mixture SIR, per filter step for the filters, per leapfrog step for
   HMC, per MALA sweep for polyreg, per scan step for the HMM unfold, per
-  MH step, jump sweep or Gibbs sweep on the branching path), and the
-  largest device items;
+  MH step, jump sweep or Gibbs sweep on the branching path, per filter
+  step or `extend` on the SMC path, per round for the dense SMC round),
+  and the largest device items;
 - K1: the device kernels of the logsumexp kernel in the trace beside the
   launches its wrappers counted in the same run (one kernel per launch),
   and how many device items come from `torch.softmax`.
@@ -142,6 +143,29 @@ def trace(fn, steps: int) -> dict:
     return {**summarize(device, launches, statistics.median(walls), steps, k1_launches=launched), "peak_mib": peak / 2**20}
 
 
+def smc_configurations(rng: torch.Generator, dev: str = "cuda") -> list:
+    """(label, steps, fn) of each configuration of the SMC path: S1 one
+    config-3 filter (systematic), S2 one run of the HMM scan program under
+    `SMCDriver`, S3 one dense round."""
+    from genjax_tpu_torch.inference.exact_testbed import build_hmm_chain_model
+    from genjax_tpu_torch.inference.smc import SMCDriver
+    from genjax_tpu_torch.models import conjugate, hmm
+
+    cfg, c = hmm.BenchConfig(), conjugate.BenchConfig()
+    obs = cfg.data(dev)
+    pf = hmm.hmm_filter(cfg.hmm(), cfg.initial_state(), cfg.smc_particles, "systematic", dev)
+    model = build_hmm_chain_model(cfg.hmm(), cfg.T, dev)
+    driver, round_driver, target = SMCDriver(n_particles=cfg.smc_particles), c.driver(), c.target()
+    return [
+        (f"S1 config-3 filter K={cfg.smc_particles} T={cfg.T} (systematic); steps are filter steps", cfg.T,
+         lambda: pf.run(rng, obs)),
+        (f"S2 HMM scan program under SMCDriver K={cfg.smc_particles} T={cfg.T}; steps are extend steps", cfg.T,
+         lambda: hmm.run_hmm_smc(rng, model, obs, cfg.initial_state(), driver, cfg.rejuvenate_every)),
+        (f"S3 dense SMC round K={c.n_particles} (init, LML, ESS, resample, rejuvenate, mean)", 1,
+         lambda: conjugate.smc_round(rng, round_driver, target)[:3]),
+    ]
+
+
 def configurations():
     """(label, steps, fn) of each configuration, on the card."""
     import genjax_tpu_torch as gx
@@ -217,6 +241,7 @@ def configurations():
             ),
         ),
         *branching,
+        *smc_configurations(rng),
     ]
 
 

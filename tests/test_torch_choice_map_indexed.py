@@ -6,6 +6,7 @@ all-lanes view (`at_lanes`) that the combinators use. Values are compared
 exactly (they are copied, not computed).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -179,3 +180,42 @@ def test_address_grammar(addr, ok):
             _validate_addr(addr)
     if addr == (slice(0, 2), "x"):
         assert _validate_addr(addr, allow_partial_slice=True) == addr
+
+
+@pytest.mark.parametrize("flags", ["per_row", "one_for_all", "per_particle_row"])
+def test_index_tensor_over_masked_choices_like_jax(flags):
+    """`C[idx, "x"]` over a `Mask`: a lane holds where it is indexed AND
+    its row's flag holds (JAX's `Mask.build(row, found)`), here through a
+    `Vmap`'s generate, whose weight and choices are held against JAX's."""
+    n_lanes, K = 5, 3
+    rng = np.random.default_rng(3)
+    mu = np.arange(n_lanes, dtype=np.float32)
+    idx = np.array([0, 2, 4])
+    lead = (K,) if flags == "per_particle_row" else ()
+    vals = rng.standard_normal(lead + (3,)).astype(np.float32)
+    flag = {"per_row": np.array([True, False, True]), "one_for_all": np.array(False),
+            "per_particle_row": rng.random((K, 3)) < 0.5}[flags]
+
+    @jgx.gen
+    def j_lane(m):
+        return jgx.normal(m, 1.0) @ "x"
+
+    @tgx.gen
+    def t_lane(m):
+        return tgx.normal(m, 1.0) @ "x"
+
+    def j_weight(v, f):
+        chm = JC.entry(jgx.Mask(v, f), jnp.asarray(idx), "x")
+        tr, w = j_lane.vmap(in_axes=(0,)).generate(jax.random.key(0), chm, (jnp.asarray(mu),))
+        return w, tr.get_choices()["x"]
+
+    mark = tgx.per_particle if lead else (lambda v: v)
+    t_chm = TC.entry(Mask(mark(torch.from_numpy(vals)), mark(torch.from_numpy(flag))), torch.from_numpy(idx), "x")
+    tr, w = t_lane.vmap(in_axes=(0,)).generate(torch.Generator().manual_seed(0), t_chm, (torch.from_numpy(mu),),
+                                               n=K if lead else None)
+    ref_w, ref_x = (jax.vmap(j_weight) if lead else j_weight)(jnp.asarray(vals), jnp.asarray(flag))
+    np.testing.assert_allclose(w.numpy(), np.asarray(ref_w), rtol=1e-5, atol=1e-5)
+    held = np.zeros(lead + (n_lanes,), bool)
+    held[..., idx] = np.broadcast_to(flag, lead + (3,))
+    x = tr.get_choices()["x"].numpy()
+    np.testing.assert_array_equal(x[held], np.asarray(ref_x)[held])  # the constrained lanes; the others are fresh draws

@@ -818,3 +818,130 @@ def test_edits_reach_through_nested_combinators():
     _close(weight, (new.get_score() - tr.get_score()).numpy(), tol=1e-4)
     one = tgx.ParticleCollection(tr, torch.zeros(K)).get_particle(1)
     _close(rows.assess(one.get_choices(), (0.0, xs))[0], one.get_score().numpy())
+
+
+@pytest.mark.parametrize("particles", [None, K])
+def test_scan_over_zero_steps_like_jax(particles):
+    """`n=0` is a valid length (`tests/combinators/test_combinator_parity.py`):
+    no steps, the carry passed through, score and weights 0, for simulate,
+    generate, assess and update, with or without scanned arguments."""
+
+    @jgx.gen
+    def j_walk(state, sigma):
+        x = jgx.normal(state, sigma) @ "x"
+        return x, x + 1
+
+    @tgx.gen
+    def t_walk(state, sigma):
+        x = tgx.normal(state, sigma) @ "x"
+        return x, x + 1
+
+    j_args, t_args = (2.0, jnp.arange(0, dtype=float)), (2.0, torch.arange(0, dtype=torch.float32))
+    j_tr = j_walk.scan(n=0).simulate(KEY, j_args)
+    tr = t_walk.scan(n=0).simulate(_rng(), t_args, n=particles)
+    lead = () if particles is None else (particles,)
+    _close(tr.get_score(), np.broadcast_to(np.asarray(j_tr.get_score()), lead))
+    assert tr.get_retval()[0] == j_tr.get_retval()[0] == 2.0
+    assert tuple(tr.get_retval()[1].shape) == lead + (0,) and j_tr.get_retval()[1].shape == (0,)
+    _, j_w = j_walk.scan().importance(jax.random.key(1), j_tr.get_choices(), j_args)
+    gen_tr, w = t_walk.scan().importance(_rng(1), tr.get_choices(), t_args, n=particles)
+    _close(w, np.broadcast_to(np.asarray(j_w), lead))
+    assert gen_tr.get_retval()[0] == 2.0
+    # JAX's assess traces the kernel even for no steps, so the empty sample
+    # raises there (a zero-length array makes no choice in either package);
+    # the port answers with what the other methods give: score 0, the
+    # carry passed through.
+    with pytest.raises(jgx.MissingAddress):
+        j_walk.scan(n=0).assess(j_tr.get_choices(), j_args)
+    s, (c, ys) = t_walk.scan(n=0).assess(tr.get_choices(), t_args, n=particles)
+    _close(s, np.zeros(lead))
+    assert c == 2.0 and tuple(ys.shape) == lead + (0,)
+    new_j = (5.0, j_args[1])
+    j_new, j_uw, _, _ = j_tr.update(KEY, JC.empty(), jgx.Diff.unknown_change(new_j))
+    new, uw, _, discard = tr.update(_rng(), TC.empty(), tgx.Diff.unknown_change((5.0, t_args[1])))
+    _close(uw, j_uw)
+    assert new.get_retval()[0] == j_new.get_retval()[0] == 5.0 and discard.static_is_empty()
+    # Nothing scanned over: the explicit length alone.
+    @jgx.gen
+    def j_add(c, _x):
+        return c + (jgx.normal(0.0, 1.0) @ "z"), None
+
+    @tgx.gen
+    def t_add(c, _x):
+        return c + (tgx.normal(0.0, 1.0) @ "z"), None
+
+    j_none = j_add.scan(n=0).simulate(KEY, (1.0, None))
+    t_none = t_add.scan(n=0).simulate(_rng(), (1.0, None), n=particles)
+    _close(t_none.get_score(), np.broadcast_to(np.asarray(j_none.get_score()), lead))
+    assert t_none.get_retval()[0] == j_none.get_retval()[0] == 1.0
+
+
+@pytest.mark.parametrize("particles", [None, K])
+def test_scan_update_through_a_stacked_vector_request_like_jax(particles):
+    """JAX's `VectorRequest` holds one stacked request and gives step `t`
+    slice `t` of every leaf; the port takes that form beside its tuple of
+    per-step requests. Weight, retdiff and new choices against JAX."""
+    from genjax_tpu.combinators.scan import VectorRequest as JVectorRequest
+
+    c0, xs, z, y = _scan_inputs(particles=particles)
+    new_z = np.random.default_rng(9).standard_normal((() if particles is None else (particles,)) + (T,)).astype(np.float32)
+    tr = convert.trace(T_SCAN, (float(c0), xs), {"z": z, "y": y}, n=particles, device="cpu")
+
+    def reference(z, y, new_z):
+        j_tr = _j_trace(J_SCAN, (c0, jnp.asarray(xs)), {"z": z, "y": y})
+        new, w, retdiff, _ = j_tr.edit(KEY, JVectorRequest(jgx.Update(JC.kw(z=new_z))))
+        return w, new.get_choices()["z"], new.get_score(), retdiff[0].primal, retdiff[1].primal
+
+    args = (jnp.asarray(z), jnp.asarray(y), jnp.asarray(new_z))
+    ref = reference(*args) if particles is None else jax.vmap(reference)(*args)
+    stacked = _t(new_z) if particles is None else tgx.per_particle(_t(new_z))
+    new, w, retdiff, bwd = tr.edit(_rng(), tgx.VectorRequest(tgx.Update(TC.kw(z=stacked))))
+    _close(w, ref[0])
+    _close(new.get_choices()["z"], ref[1])
+    _close(new.get_score(), ref[2])
+    _close(retdiff[0].primal, ref[3])
+    _close(retdiff[1].primal, ref[4])
+    back, w_back, _, _ = new.edit(_rng(), bwd)  # the backward request: a tuple, one per step
+    _close(w_back, -np.asarray(ref[0]))
+    _close(back.get_choices()["z"], z)
+
+
+def test_vmap_in_axes_reach_into_a_pytree_dataclass_like_jax():
+    """`in_axes` is any pytree prefix of the arguments, as for `jax.vmap`:
+    a `Pytree` dataclass maps some fields and shares others."""
+    from genjax_tpu.core.pytree import Pytree as JPytree
+    from genjax_tpu_torch.core.pytree import Pytree as TPytree
+
+    @JPytree.dataclass
+    class JParams(JPytree):
+        loc: jax.Array
+        scale: jax.Array
+
+    @TPytree.dataclass
+    class TParams(TPytree):
+        loc: torch.Tensor
+        scale: torch.Tensor
+
+    @jgx.gen
+    def j_lane(p, shift):
+        return jgx.normal(p.loc + shift, p.scale) @ "x"
+
+    @tgx.gen
+    def t_lane(p, shift):
+        return tgx.normal(p.loc + shift, p.scale) @ "x"
+
+    rng = np.random.default_rng(4)
+    loc, scale = rng.standard_normal(N).astype(np.float32), np.float32(0.7)
+    x = rng.standard_normal(N).astype(np.float32)
+    for j_axes, t_axes, j_p, t_p in (
+        ((JParams(0, None), None), (TParams(0, None), None), JParams(jnp.asarray(loc), jnp.asarray(scale)),
+         TParams(_t(loc), _t(scale))),
+        ((JParams(0, 0), None), (TParams(0, 0), None), JParams(jnp.asarray(loc), jnp.full(N, scale)),
+         TParams(_t(loc), torch.full((N,), float(scale)))),
+    ):
+        ref, ref_x = j_lane.vmap(in_axes=j_axes).assess(JC.kw(x=jnp.asarray(x)), (j_p, jnp.asarray(0.2)))
+        got, got_x = t_lane.vmap(in_axes=t_axes).assess(TC.kw(x=_t(x)), (t_p, torch.tensor(0.2)))
+        _close(got, ref)
+        _close(got_x, ref_x)
+    with pytest.raises(ValueError, match="does not match"):
+        t_lane.vmap(in_axes=(TParams(0, None), None)).assess(TC.kw(x=_t(x)), ((_t(loc), _t(scale)), torch.tensor(0.2)))

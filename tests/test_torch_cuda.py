@@ -1,6 +1,10 @@
 """The CUDA logsumexp kernel (both entry points) against its plain PyTorch
-versions, on the card; and the MCMC path on the card: `run_chains` with no
-device synchronisation, and HMC's result against the CPU's.
+versions, on the card; the MCMC path on the card (`run_chains` with no
+device synchronisation, and HMC's result against the CPU's); the
+combinator and branching paths; and the SMC path (the resamplers' maps,
+the filter with each resampler, `SMCDriver`, the SIR algorithms, PMMH,
+particle Gibbs, FFBS and tempered SMC), every leaf on the card and K1
+counted.
 
 These tests need a CUDA device (the kernel has no CPU mode) and skip
 without one. On a machine with the card and without JAX, run them with
@@ -483,3 +487,183 @@ def test_branching_path_on_the_card(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert a.get_choices()["m", "mixture_component"].shape == (1024,)
     assert b.get_choices()["m"].device.type == cuda.type and c.get_choices()["z"].device.type == cuda.type
+
+
+def _on_card(tree, cuda) -> bool:
+    import torch.utils._pytree as pytree
+
+    return all(v.device.type == cuda.type for v in pytree.tree_leaves(tree) if isinstance(v, torch.Tensor))
+
+
+@pytest.mark.parametrize("method", ["multinomial", "systematic", "stratified", "residual"])
+def test_resampler_maps_on_the_card_match_the_cpu(cuda, method):
+    # Each resampler's deterministic part, fed the same uniforms on the card
+    # and on the CPU, gives the same ancestors (but for float32 ties, at most
+    # 1 slot in 1000).
+    from genjax_tpu_torch.inference import smc
+
+    g = torch.Generator().manual_seed(0)
+    n = 10_000
+    lw = 3.0 * torch.randn(n, generator=g)
+    us = smc.sorted_uniforms(g, n)
+    perm = torch.randperm(n, generator=g)
+    u = torch.rand(n, generator=g)
+
+    def ancestors(dev):
+        lw_d, us_d, perm_d, u_d = (x.to(dev) for x in (lw, us, perm, u))
+        if method == "multinomial":
+            return smc.multinomial_ancestors(us_d, perm_d, lw_d)
+        if method == "stratified":
+            return smc.stratified_ancestors(u_d, lw_d)
+        if method == "residual":
+            return smc.residual_ancestors(us_d, perm_d, lw_d)
+        return smc.cum_counts_to_ancestors(smc.systematic_cum_counts(u_d[0], lw_d, n), n)
+
+    card, cpu = ancestors(cuda), ancestors("cpu")
+    assert card.device.type == cuda.type and card.shape == (n,)
+    assert int((card.cpu() != cpu).sum()) <= n // 1000
+
+
+@pytest.mark.parametrize("method", ["multinomial", "systematic", "stratified", "residual"])
+def test_filter_with_each_resampler_on_the_card(cuda, method):
+    # BASELINE config 3's filter (the 64-state HMM, here T=12, K=4096): one
+    # logsumexp_ess launch per step and none else, `collect=` stacked over T
+    # on the card, and the LML within 5 SE of the forward algorithm over 10
+    # runs.
+    import statistics
+
+    from genjax_tpu_torch.models import hmm
+
+    cfg = hmm.BenchConfig(T=12)
+    obs, init = cfg.data(cuda), cfg.initial_state()
+    pf = hmm.hmm_filter(cfg.hmm(), init, 4096, method, cuda)
+    rng = torch.Generator(device=cuda).manual_seed(1)
+    before = (fused_logsumexp.launches, fused_logsumexp_ess.launches)
+    lml, z, lws = pf.run(rng, obs, collect=lambda z, lw: lw)
+    assert (fused_logsumexp.launches, fused_logsumexp_ess.launches) == (before[0], before[1] + cfg.T - 1)
+    assert lws.shape == (cfg.T, 4096) and _on_card((lml, z, lws), cuda)
+    lmls = [float(lml)] + [float(pf.run(rng, obs)[0]) for _ in range(9)]
+    exact = float(hmm.exact_log_marginal(cfg.hmm(), obs, init))
+    assert abs(statistics.fmean(lmls) - exact) < 5 * statistics.stdev(lmls) / math.sqrt(10), (lmls, exact)
+
+
+def test_smc_driver_on_the_card(cuda):
+    # The HMM scan program under SMCDriver (16 states, T=6, K=4096): every
+    # leaf on the card, one logsumexp_ess per gate and one logsumexp for the
+    # LML; then the dense round of the 1M-particle bench at K=65,536: 1
+    # logsumexp and 2 logsumexp_ess, the resampled ESS equal to K.
+    import statistics
+
+    from genjax_tpu_torch.inference.exact_testbed import build_hmm_chain_model
+    from genjax_tpu_torch.models import conjugate, hmm
+
+    cfg = hmm.BenchConfig(n_states=16, T=6)
+    obs, init = cfg.data(cuda), cfg.initial_state()
+    model = build_hmm_chain_model(cfg.hmm(), cfg.T, cuda)
+    driver = __import__("genjax_tpu_torch").smc.SMCDriver(n_particles=4096)
+    rng = torch.Generator(device=cuda).manual_seed(2)
+    before = (fused_logsumexp.launches, fused_logsumexp_ess.launches)
+    col = hmm.run_hmm_smc(rng, model, obs, init, driver, rejuvenate_every=2)
+    lml = col.get_log_marginal_likelihood_estimate()
+    assert (fused_logsumexp.launches, fused_logsumexp_ess.launches) == (before[0] + 1, before[1] + cfg.T - 1)
+    assert _on_card(col, cuda) and col.get_particles().get_choices()["z"].shape == (4096, cfg.T)
+    lmls = [float(lml)] + [
+        float(hmm.run_hmm_smc(rng, model, obs, init, driver, 2).get_log_marginal_likelihood_estimate()) for _ in range(7)
+    ]
+    exact = float(hmm.exact_log_marginal(cfg.hmm(), obs, init))
+    assert abs(statistics.fmean(lmls) - exact) < 5 * statistics.stdev(lmls) / math.sqrt(8), (lmls, exact)
+
+    c = conjugate.BenchConfig(n_particles=65_536)
+    before = (fused_logsumexp.launches, fused_logsumexp_ess.launches)
+    lml, ess0, mean_x, resampled = conjugate.smc_round(rng, c.driver(), c.target())
+    assert (fused_logsumexp.launches, fused_logsumexp_ess.launches) == (before[0] + 1, before[1] + 2)
+    assert _on_card((lml, ess0, mean_x, resampled), cuda)
+    assert abs(float(resampled.get_ess()) - c.n_particles) <= 1e-3 * c.n_particles
+    assert abs(float(lml) - c.exact_lml()) < 0.02 and abs(float(mean_x) - c.posterior_mean()) < 0.05
+
+
+def test_sir_algorithms_on_the_card(cuda):
+    # Importance(q=), ImportanceK(q=), ChangeTarget and CSMC's
+    # estimate_logpdf on the conjugate normal model: every leaf on the card,
+    # each estimate near its closed form (K=65,536 makes the error small).
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.inference.smc import ChangeTarget, Importance, ImportanceK
+
+    @gx.gen
+    def model(s):
+        x = gx.normal(0.0, s) @ "x"
+        _ = gx.normal(x, 1.0) @ "y"
+
+    @gx.marginal()
+    @gx.gen
+    def q_wide(target):
+        _ = gx.normal(0.0, 1.5) @ "x"
+
+    def lml(s):
+        return -0.5 / (s * s + 1) - 0.5 * math.log(2 * math.pi * (s * s + 1))
+
+    t1, t2 = gx.Target(model, (1.0,), gx.ChoiceMap.kw(y=1.0)), gx.Target(model, (2.0,), gx.ChoiceMap.kw(y=1.0))
+    rng = torch.Generator(device=cuda).manual_seed(3)
+    one = Importance(t1, q_wide).run_smc(rng)
+    assert _on_card(one, cuda) and one.get_log_weights().shape == (1,)
+    col = ImportanceK(t1, q_wide, k_particles=65_536).run_smc(rng)
+    assert _on_card(col, cuda) and abs(float(col.get_log_marginal_likelihood_estimate()) - lml(1.0)) < 0.02
+    moved = ChangeTarget(ImportanceK(t1, k_particles=65_536), t2).run_smc(rng)
+    assert _on_card(moved, cuda) and abs(float(moved.get_log_marginal_likelihood_estimate()) - lml(2.0)) < 0.03
+    retained = gx.ChoiceMap.kw(x=torch.tensor(0.2, device=cuda))
+    csmc = ImportanceK(t1, k_particles=65_536).run_csmc(rng, retained)
+    assert _on_card(csmc, cuda) and float(csmc.get_particle(65_535).get_choices()["x"]) == pytest.approx(0.2)
+    est = ImportanceK(t1, k_particles=65_536).estimate_logpdf(rng, retained, t1)
+    assert abs(float(est) - (-0.5 * 0.09 / 0.5 - 0.5 * math.log(math.pi))) < 0.02
+
+
+def test_particle_mcmc_smoothing_and_tempering_on_the_card(cuda):
+    # PMMH, a PGAS sweep, FFBS and tempered SMC on the linear-Gaussian SSM
+    # and the conjugate model: every output on the card and finite, with the
+    # shapes of their contracts; K1 runs in each filter.
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.inference.particle_gibbs import ParticleGibbs
+    from genjax_tpu_torch.inference.pmmh import PMMH
+    from genjax_tpu_torch.inference.requests import GaussianDrift
+    from genjax_tpu_torch.inference.smoothing import ffbs_sample, smoothing_clouds
+    from genjax_tpu_torch.inference.tempered import TemperedSMC
+
+    @gx.gen
+    def init(a):
+        z = gx.normal(0.0, 1.0) @ "z"
+        _ = gx.normal(z, 0.4) @ "y"
+        return z
+
+    @gx.gen
+    def step(z_prev, t, a):
+        z = gx.normal(a * z_prev, 0.5) @ "z"
+        _ = gx.normal(z, 0.4) @ "y"
+        return z
+
+    rng = torch.Generator(device=cuda).manual_seed(4)
+    ys = torch.tensor([0.3, 1.0, 0.5, -0.2, 0.8, 0.1, 0.4, 0.9], device=cuda)
+    a = torch.tensor(0.7, device=cuda)
+    pf = gx.BootstrapFilter(step, init, 512, obs_addr="y")
+    prior = lambda th: gx.normal.logpdf(th, 0.0, 1.0)  # noqa: E731
+    before = fused_logsumexp_ess.launches
+    theta, (thetas, lmls, accepts) = PMMH(pf, log_prior=prior, step_scales=0.2).run(rng, a, ys, 20)
+    assert fused_logsumexp_ess.launches == before + 21 * (len(ys) - 1)
+    assert _on_card((theta, thetas, lmls, accepts), cuda) and bool(torch.isfinite(lmls).all())
+    theta, path, (thetas, accs) = ParticleGibbs(pf, log_prior=prior, step_scales=0.2).run(rng, a, ys, 5)
+    assert _on_card((theta, path, thetas, accs), cuda) and path.shape == ys.shape
+    _, clouds, lws = smoothing_clouds(pf, rng, ys, (a,))
+    paths = ffbs_sample(rng, pf, clouds, lws, 256, ys, (a,))
+    assert _on_card((clouds, lws, paths), cuda) and paths.shape == (256, len(ys)) and bool(torch.isfinite(paths).all())
+
+    @gx.gen
+    def conj():
+        mu = gx.normal(0.0, 1.0) @ "mu"
+        _ = gx.normal(mu, 1.0) @ "y"
+
+    target = gx.Target(conj, (), gx.ChoiceMap.kw(y=1.0))
+    for request in (GaussianDrift(gx.Selection.at["mu"], 0.6), gx.MALA(gx.Selection.at["mu"], 0.25)):
+        smc = TemperedSMC(n_particles=4096, betas=torch.linspace(0.0, 1.0, 8, device=cuda), request=request, n_moves=2)
+        col, log_z = smc.run(rng, target)
+        assert _on_card((col, log_z), cuda) and abs(float(log_z) - (-0.25 - 0.5 * math.log(4 * math.pi))) < 0.1
+    col, log_z, betas = smc.run_adaptive(rng, target)
+    assert _on_card((col, log_z), cuda) and math.isfinite(float(log_z))

@@ -697,3 +697,21 @@ def test_masked_iterate_over_particles_like_jax(final):
     sim_x = sim_x.value if isinstance(sim_x, tgx.Mask) else sim_x
     js2, _ = jax.vmap(lambda a, b: j_fn.assess(JC.kw(x=a), (b, jnp.asarray(FLAGS))))(sim_x.numpy(), x0)
     _close(tr_sim.get_score(), js2)
+
+
+@pytest.mark.parametrize("branch", [0, 1])
+def test_inner_trace_of_a_switch_with_a_0d_index_tensor_like_jax(branch):
+    """`get_subtrace` names the branch a 0-d index tensor holds (JAX reads
+    `subtraces[idx]`); an index with a batch axis names a branch per row,
+    and the refusal points to the choices, whose `Switch` node selects."""
+    _, xs, zs = _data()
+    j_chm = JC.kw(x=jnp.asarray(xs[0])) if branch == 0 else JC.kw(x=jnp.asarray(xs[0]), z=jnp.asarray(zs[0]))
+    t_chm = TC.kw(x=torch.tensor(xs[0])) if branch == 0 else TC.kw(x=torch.tensor(xs[0]), z=torch.tensor(zs[0]))
+    j_tr, _ = J_SW.importance(KEY, j_chm, J_ARGS(jnp.asarray(branch)))
+    t_tr, _ = T_SW.importance(_rng(), t_chm, T_ARGS(torch.tensor(branch)))
+    _close(t_tr.get_subtrace("x").get_score(), j_tr.get_subtrace("x").get_score())
+    _close(t_tr.get_subtrace("x").get_retval(), j_tr.get_subtrace("x").get_retval())
+    idx, _, _ = _data()
+    batched = T_SW.simulate(_rng(1), T_ARGS(PP(torch.tensor(idx, dtype=torch.int64))), n=K)
+    with pytest.raises(NotImplementedError, match="get_choices"):
+        batched.get_subtrace("x")
