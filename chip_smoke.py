@@ -46,8 +46,18 @@ resampled ESS against their closed forms, 1 `logsumexp` and 2
 `logsumexp_ess` launches per round); K1 held against its plain twin on
 S1's and S3's own weights; S4 `Importance(q=)`, `ImportanceK(q=)`,
 `ChangeTarget`, CSMC's `estimate_logpdf`, PMMH, particle Gibbs, FFBS and
-tempered SMC at their JAX tests' sizes against closed forms. Every phase
-raises on failure; nothing is caught.
+tempered SMC at their JAX tests' sizes against closed forms. Then the VI
+path (`phase_vi`), BASELINE config 5 at the width of `bench.py::_ravi`:
+150 ELBO steps of `train_guide` against the posterior N(1.6, 0.2) (0
+syncs and 1 kernel launch per step), the ELBO gradient at (0, 0) over 256
+estimates against its closed form (-8, 4), 8 IWELBO values and gradients
+at N=1M (the kernel forward and backward at full width; its backward held
+against `torch.logsumexp`'s on the run's own weights within 1e-6), 20
+guided LML estimates at K=1M against the exact LML, and the nested
+sampler at its JAX test's size against the exact evidence. K1's gradient
+is also held against the plain twin's at every kernel size and its
+backward timed beside `torch.logsumexp`'s. Every phase raises on failure;
+nothing is caught.
 
 Run from the repository root, with one CUDA card visible:
 
@@ -126,6 +136,18 @@ RESAMPLING = ("systematic", "multinomial", "stratified", "residual")
 SMC_FILTER_RUNS = 20
 SMC_DRIVER_RUNS = 10
 LG_Q, LG_R, LG_A = 0.5, 0.4, 0.8  # the linear-Gaussian SSM of the PMMH, PG and FFBS tests
+# The VI path (`models/ravi.py::BenchConfig`, BASELINE config 5 at the width
+# of `bench.py::_ravi`): ELBO gradients held at the origin, IWELBO
+# estimates at N=1M, and the nested sampler at the size of
+# `tests/inference/test_nested.py:35`.
+ELBO_GRAD_ESTIMATES = 256
+IWELBO_ESTIMATES = 8
+SYNC_STEPS = 10  # the ELBO steps over which syncs are counted
+NESTED_Y = (1.0, -0.5, 2.0)
+NESTED = dict(n_live=400, n_iters=2400, n_mcmc=20, step_scale=0.4)
+# K1's backward, `g * exp(x - lse)`: x read, the gradient written.
+BACKWARD_BYTES_PER_VALUE = 8
+GRAD_TOLERANCE = 1e-6  # per element, relative to max(1, |ref|)
 
 
 def check(ok: bool, what: str) -> None:
@@ -296,6 +318,72 @@ def phase_kernel(ops, card: str) -> dict:
             print(f"[{card}] N={n}, event time of single calls (median of {TIMED_CALLS}, host enqueue "
                   f"included): " + ", ".join(f"{k} {v:.4f} ms" for k, v in single.items()))
     return {name: {"max_abs_err": max_err[name], **records[name][MAIN_PATH_N]} for name in kernels}
+
+
+def grad_error(ops, x: torch.Tensor) -> float:
+    """K1's gradient on `x` against the plain twin's,
+    `torch.autograd.grad(torch.logsumexp(x, 0), x)`: the largest |error|
+    per element over max(1, |ref|), held within GRAD_TOLERANCE. The
+    comparison launch leaves the count alone."""
+    before = ops.fused_logsumexp.launches
+    leaf = x.detach().requires_grad_()
+    (got,) = torch.autograd.grad(ops.fused_logsumexp(leaf), leaf)
+    ops.fused_logsumexp.launches = before
+    (ref,) = torch.autograd.grad(torch.logsumexp(leaf, 0), leaf)
+    err = float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max()) if x.numel() else 0.0
+    check(err <= GRAD_TOLERANCE, f"K1's gradient at N={x.numel()}: max |err| / max(1, |ref|) {err} > {GRAD_TOLERANCE}")
+    return err
+
+
+def phase_kernel_backward(ops, card: str) -> dict:
+    """K1's gradient against the plain twin's at every kernel size, aligned
+    and not; then the backward's device time through `torch.autograd.grad`
+    beside `torch.logsumexp`'s backward and beside the bare formula, at the
+    timed sizes. Returns the numbers for K1's record in the kernels' line."""
+    from genjax_tpu_torch.profiling import device_and_host
+
+    logsumexp_module = sys.modules["genjax_tpu_torch.ops.logsumexp"]
+    dev = torch.device("cuda")
+    rng = torch.Generator(device=dev).manual_seed(1)
+    worst = 0.0
+    for n in KERNEL_SIZES[:-1]:
+        x = 3.0 * torch.randn(n + 3, generator=rng, device=dev)
+        worst = max(worst, *(grad_error(ops, x[s : s + n]) for s in (0, 1, 3)))
+    print(f"K1's gradient == torch.logsumexp's at N={', '.join(map(str, KERNEL_SIZES[:-1]))}, offsets 0, 1 and 3: max "
+          f"|err| / max(1, |ref|) {worst:.3e} (tolerance {GRAD_TOLERANCE:g} per element)")
+    before = ops.fused_logsumexp.launches
+    record = {}
+    for n in (4_096, MAIN_PATH_N, 16_777_216):
+        leaf = (3.0 * torch.randn(n, generator=rng, device=dev)).requires_grad_()
+        k1_out, lib_out = ops.fused_logsumexp(leaf), torch.logsumexp(leaf, 0)
+        g, x, lse = torch.ones((), device=dev), leaf.detach(), k1_out.detach()
+        timed = {
+            "K1 backward": lambda _: torch.autograd.grad(k1_out, leaf, retain_graph=True),
+            "torch.logsumexp backward": lambda _: torch.autograd.grad(lib_out, leaf, retain_graph=True),
+            "g * exp(x - lse) alone": lambda _: logsumexp_module.lse_backward(g, x, lse),
+        }
+        for fn in timed.values():
+            device_and_host(fn, None, 5)
+        device, host = {k: [] for k in timed}, {k: [] for k in timed}
+        for label in [*timed, *reversed(timed)]:
+            d, h = device_and_host(timed[label], None, TIMED_CALLS // 2)
+            device[label].append(d)
+            host[label].append(h)
+        dev_ms = {k: statistics.fmean(v) for k, v in device.items()}
+        host_us = {k: statistics.fmean(v) for k, v in host.items()}
+        bound_ms = 1e3 * BACKWARD_BYTES_PER_VALUE * n / HBM_BYTES_PER_S
+        print(f"[{card}] K1 backward N={n}: device {dev_ms['K1 backward']:.4f} ms per call (torch.autograd.grad, "
+              f"{TIMED_CALLS} calls behind a sleep kernel, CUDA events), bound {bound_ms:.4g} ms (bytes: 8N), "
+              f"{100 * bound_ms / dev_ms['K1 backward']:.1f}% of bound; torch.logsumexp's backward "
+              f"{dev_ms['torch.logsumexp backward']:.4f} ms; the formula alone {dev_ms['g * exp(x - lse) alone']:.4f} "
+              f"ms; host {host_us['K1 backward']:.2f} us per call (torch.logsumexp's "
+              f"{host_us['torch.logsumexp backward']:.2f}, the formula's {host_us['g * exp(x - lse) alone']:.2f})")
+        if n == MAIN_PATH_N:
+            record = {"backward_ms": dev_ms["K1 backward"], "backward_library_ms": dev_ms["torch.logsumexp backward"],
+                      "backward_bound_ms": bound_ms}
+        del leaf, k1_out, lib_out, x
+    ops.fused_logsumexp.launches = before  # timing launches: not on a main path
+    return {"grad_max_abs_err": worst, **record}
 
 
 def phase_sir(gx, ops, card: str) -> None:
@@ -1489,6 +1577,147 @@ def phase_smc_drivers(gx, card: str, dev: str = "cuda") -> None:
     print(f"[{card}] S4 drivers: {time.perf_counter() - t0:.1f} s in all")
 
 
+def phase_vi(gx, ops, card: str, dev: str = "cuda") -> float:
+    """The VI path, BASELINE config 5 at the width of `bench.py::_ravi`:
+    V1 150 ELBO steps of `train_guide` from (0, 0) against the posterior
+    N(1.6, 0.2); V2 the ELBO gradient at (0, 0), the mean of 256 estimates
+    against the closed form (-8, 4); V3 IWELBO values and gradients at
+    N=1M, the value against -log Z and the gradient against 0, K1's
+    backward held against the plain twin's on the run's own 1M log
+    weights; V4 20 guided LML estimates at K=1M against the exact LML; V5
+    the nested sampler at its JAX test's size against the exact evidence.
+    Returns K1's largest gradient error on the path's own weights."""
+    from genjax_tpu_torch import profiling
+    from genjax_tpu_torch.adev import expectation
+    from genjax_tpu_torch.inference import vi
+    from genjax_tpu_torch.inference.nested import NestedSampler
+    from genjax_tpu_torch.models import ravi
+
+    t_phase = time.perf_counter()
+    cfg = ravi.BenchConfig()
+    dev = torch.device(dev)
+    rng = torch.Generator(device=dev).manual_seed(13)
+    exact = ravi.exact_lml(cfg.obs)
+    profiles = dict(zip(("V1", "V2"), profiling.vi_configurations(torch.Generator(device=dev).manual_seed(3), dev)))
+
+    # V1: train the guide.
+    before = counted(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = ravi.train_guide(rng, n_steps=cfg.n_train, lr=cfg.lr, obs=cfg.obs, device=dev)
+    torch.cuda.synchronize()
+    train_ms = 1e3 * (time.perf_counter() - t0)
+    launches = counted(ops)[0] - before[0]
+    vmu, vls = float(params[0]), float(params[1])
+    check(abs(vmu - 1.6) < 0.25, f"V1: the trained guide's mean {vmu}, not within 0.25 of 1.6")
+    check(abs(math.exp(vls) - math.sqrt(0.2)) < 0.1, f"V1: the trained guide's scale {math.exp(vls)}, not within 0.1 of sqrt(0.2)")
+    check(launches == cfg.n_train, f"V1: {launches} logsumexp launches over {cfg.n_train} ELBO steps, not one per step")
+    syncs = count_syncs(lambda: ravi.train_guide(rng, n_steps=SYNC_STEPS, lr=cfg.lr, obs=cfg.obs, device=dev))
+    print(f"V1 train_guide: {cfg.n_train} ELBO steps at {cfg.lr} from (0, 0): (vmu, exp(vls)) = ({vmu:.4f}, "
+          f"{math.exp(vls):.4f}) against the posterior (1.6, {math.sqrt(0.2):.4f})")
+    print(f"[{card}] V1 ELBO training: {train_ms / cfg.n_train:.3f} ms/step ({train_ms:.1f} ms for {cfg.n_train} steps, "
+          f"host clock between syncs, first call included); {syncs / SYNC_STEPS:.2f} device synchronisations and "
+          f"{launches / cfg.n_train:.0f} K1 launch per step")
+    check(syncs == 0, f"V1: {syncs} device synchronisations over {SYNC_STEPS} ELBO steps")
+    print_profile(card, "V1 guided LML at K=1M", profiling.trace(profiles["V1"][2], 1))
+
+    # V2: the ELBO gradient at the origin.
+    step = vi.ELBO(ravi.guide, lambda a, b: ravi.make_target(a, b, cfg.obs))
+    origin = (torch.zeros((), device=dev), torch.zeros((), device=dev))
+    times, grads = timed_runs(lambda: torch.stack(step(rng, origin)), ELBO_GRAD_ESTIMATES)
+    grads = torch.stack(grads).double().cpu()
+    print(f"V2 ELBO gradient at (0, 0), {ELBO_GRAD_ESTIMATES} estimates: "
+          + within_se(grads[:, 0].tolist(), -8.0, "d/dvmu") + "; " + within_se(grads[:, 1].tolist(), 4.0, "d/dvls"))
+    print(f"[{card}] V2 ELBO gradient: {statistics.median(times):.3f} ms per estimate (median of {ELBO_GRAD_ESTIMATES}, "
+          f"host clock between syncs)")
+
+    # V3: IWELBO at N=1M from the origin. The backward's own inputs are
+    # recorded (the log weights that K1's forward reduced) and K1's gradient
+    # is held against the plain twin's on them.
+    @expectation
+    def negated_iwelbo(vmu, vls):
+        target = ravi.make_target(vmu, vls, cfg.obs)
+        return -gx.ImportanceK(target, ravi.guide, k_particles=cfg.iwelbo_particles).estimate_normalizing_constant(rng, target)
+
+    logsumexp_module = sys.modules["genjax_tpu_torch.ops.logsumexp"]
+    plain_backward, seen = logsumexp_module.lse_backward, []
+
+    def recording_backward(g, x, lse):
+        seen.append(x.detach())
+        return plain_backward(g, x, lse)
+
+    def iwelbo():
+        before = counted(ops)
+        value, g = negated_iwelbo.value_and_grad_estimate(rng, origin)
+        return value, torch.stack(g), counted(ops)[0] - before[0]
+
+    logsumexp_module.lse_backward = recording_backward
+    try:
+        times, runs = timed_runs(iwelbo, IWELBO_ESTIMATES)
+    finally:
+        logsumexp_module.lse_backward = plain_backward
+    check(all(n == 1 for *_, n in runs), f"V3: K1 launches per IWELBO estimate {[n for *_, n in runs]}, not 1")
+    check(len(seen) == IWELBO_ESTIMATES + 1 and all(w.numel() == cfg.iwelbo_particles for w in seen),
+          f"V3: K1's backward ran {len(seen)} times, not once per estimate at N={cfg.iwelbo_particles}")
+    grad_err = max(grad_error(ops, w) for w in seen)
+    gvec = torch.stack([g for _, g, _ in runs]).double().cpu()
+    entry_grads = vi.IWELBO(ravi.guide, lambda a, b: ravi.make_target(a, b, cfg.obs), cfg.iwelbo_particles)(rng, origin)
+    check(all(bool(torch.isfinite(g)) for g in entry_grads), f"V3: vi.IWELBO's gradient {entry_grads}")
+    print(f"V3 IWELBO at N={cfg.iwelbo_particles} from (0, 0), {IWELBO_ESTIMATES} estimates: "
+          + within_se([float(v) for v, _, _ in runs], -exact, "value (against -log Z)") + "; "
+          + within_se(gvec[:, 0].tolist(), 0.0, "d/dvmu") + "; " + within_se(gvec[:, 1].tolist(), 0.0, "d/dvls")
+          + f"; K1's backward == torch.logsumexp's on the run's own {len(seen)} weight vectors of 1M: max |err| / "
+          f"max(1, |ref|) {grad_err:.3e} (tolerance {GRAD_TOLERANCE:g})")
+    syncs = count_syncs(iwelbo)
+    print(f"[{card}] V3 IWELBO value and gradient at N={cfg.iwelbo_particles}: {statistics.median(times):.3f} ms per "
+          f"estimate (median of {IWELBO_ESTIMATES}, host clock between syncs); 1 K1 launch forward and its backward; "
+          f"{syncs} device synchronisations")
+    print_profile(card, "V2 IWELBO value and gradient at N=1M", profiling.trace(profiles["V2"][2], 1))
+
+    # V4: guided LML estimates at K=1M.
+    def estimate():
+        before = counted(ops)
+        lml = ravi.nested_smc_lml(rng, params, cfg.k_particles, cfg.obs, dev)
+        return lml, counted(ops)[0] - before[0]
+
+    times, results = timed_runs(estimate, cfg.n_estimates)
+    check(all(n == 1 for _, n in results), f"V4: K1 launches per estimate {[n for _, n in results]}, not 1")
+    lmls = [float(lml) for lml, _ in results]
+    mean, se = statistics.fmean(lmls), statistics.stdev(lmls) / math.sqrt(len(lmls))
+    check(all(math.isfinite(v) for v in lmls) and abs(mean - exact) < max(5 * se, 2e-3),
+          f"V4: mean LML {mean} not within max(5 SE = {5 * se}, 2e-3) of {exact}")
+    syncs = count_syncs(estimate)
+    ms = statistics.median(times)
+    print(f"V4 guided LML at K={cfg.k_particles}, {cfg.n_estimates} estimates: mean {mean:.6f} (exact {exact:.6f}, SE "
+          f"{se:.2e}, |mean - exact| {abs(mean - exact):.2e} within max(5 SE, 2e-3))")
+    print(f"[{card}] V4 guided LML K={cfg.k_particles}: {ms:.3f} ms per estimate (median of {cfg.n_estimates}, host "
+          f"clock between syncs), {cfg.k_particles / (ms * 1e-3):.4g} particles/s; 1 K1 launch and {syncs} device "
+          f"synchronisations per estimate")
+
+    # V5: the nested sampler at its JAX test's size.
+    @gx.gen
+    def conjugate_model():
+        x = gx.normal(torch.zeros(len(NESTED_Y), device=dev), 1.0) @ "x"
+        _ = gx.normal(x, 0.5) @ "y"
+
+    ys = torch.tensor(NESTED_Y, device=dev)
+    ns = NestedSampler(conjugate_model, (), gx.ChoiceMap.kw(y=ys), gx.Selection.at["x"], **NESTED)
+    nested_exact = sum(-0.5 * y * y / 1.25 - 0.5 * math.log(2 * math.pi * 1.25) for y in NESTED_Y)
+    before = counted(ops)
+    (ns_ms,), (out,) = timed_runs(lambda: ns.run(rng), 1, warm=False)
+    ns_launches = counted(ops)[0] - before[0]
+    lml, acc, rem = float(out["lml"]), float(out["accept_rate"]), float(out["remainder_frac"])
+    check(abs(lml - nested_exact) < 0.3, f"V5: nested sampling evidence {lml} not within 0.3 of {nested_exact}")
+    check(0.15 < acc < 0.9 and rem < 0.5, f"V5: accept rate {acc}, remainder fraction {rem}")
+    steps = NESTED["n_iters"] * NESTED["n_mcmc"]
+    print(f"V5 NestedSampler (n_live={NESTED['n_live']}, n_iters={NESTED['n_iters']}, n_mcmc={NESTED['n_mcmc']}): "
+          f"evidence {lml:.4f} (exact {nested_exact:.4f}, tolerance 0.3), accept rate {acc:.3f}, remainder {rem:.3f}")
+    print(f"[{card}] V5 nested sampling: {ns_ms / 1e3:.2f} s per run ({1e3 * ns_ms / steps:.1f} us per constrained "
+          f"walk step, host clock between syncs); {ns_launches} K1 launches per run")
+    print(f"[{card}] VI phase: {time.perf_counter() - t_phase:.1f} s in all")
+    return grad_err
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1507,6 +1736,7 @@ def main() -> None:
     print(f"built {lib.name} from genjax_tpu_torch/csrc/logsumexp.cu in {time.perf_counter() - t0:.2f} s")
 
     kernels = phase_kernel(ops, card)
+    backward = phase_kernel_backward(ops, card)
 
     # The main paths, each with every launch count set to 0 just before it
     # and read just after.
@@ -1522,6 +1752,9 @@ def main() -> None:
         "branching": drive(lambda: phase_branching(gx, ops, card)),
         "smc": drive(lambda: phase_smc(gx, ops, card)),
     }
+    vi_grad_err = []
+    paths["vi"] = drive(lambda: vi_grad_err.append(phase_vi(gx, ops, card)))
+    backward["grad_max_abs_err"] = max(backward["grad_max_abs_err"], *vi_grad_err)
     launches = {name: sum(p[name] for p in paths.values()) for name in ("logsumexp", "logsumexp_ess")}
     for name, count in paths["particle"].items():
         check(count > 0, f"the particle path launched no {name} kernel")
@@ -1530,6 +1763,7 @@ def main() -> None:
     check(paths["branching"]["logsumexp"] > 0, "the branching path (mixture SIR) launched no logsumexp kernel")
     for name, count in paths["smc"].items():
         check(count > 0, f"the SMC path launched no {name} kernel")
+    check(paths["vi"]["logsumexp"] > 0, "the VI path (ELBO, IWELBO, the guided LML) launched no logsumexp kernel")
     print("kernel launches on the main paths: " + ", ".join(
         f"{name} {count} (" + ", ".join(f"{path} path {p[name]}" for path, p in paths.items()) + ")"
         for name, count in launches.items()))
@@ -1541,6 +1775,7 @@ def main() -> None:
         "replaces": "genjax_tpu/ops/logsumexp.py:21",
         "launches": launches[name],
         **record,
+        **(backward if name == "logsumexp" else {}),
     } for name, record in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

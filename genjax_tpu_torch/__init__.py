@@ -1,13 +1,18 @@
-"""genjax_tpu_torch: the particle, SMC, MCMC, combinator and branching paths
-of genjax_tpu on PyTorch and CUDA.
+"""genjax_tpu_torch: the particle, SMC, MCMC, combinator, branching and
+ADEV/VI paths of genjax_tpu on PyTorch and CUDA.
 
 A port of `genjax_tpu` (JAX) to PyTorch, module for module
 (`genjax_tpu_torch/inference/smc.py` mirrors `genjax_tpu/inference/smc.py`).
 Randomness comes from explicit `torch.Generator`s; batching over particles
 is a leading tensor axis (`n=` on the GFI methods), and a `vmap` adds a
 lane axis behind it; kernels are written by
-hand in CUDA under `csrc/` and built at first use. This package imports
-torch and numpy, never jax.
+hand in CUDA under `csrc/` and built at first use. ADEV (`adev/`) runs a
+loss eagerly under a handler, each estimate a tensor whose autograd
+gradient is the gradient estimate, multi-call strategies re-executing the
+loss (`adev/core.py`); variational inference (`inference/vi.py`), nested
+sampling (`inference/nested.py`) and BASELINE config 5
+(`models/ravi.py`) sit on it. This package imports torch and numpy, never
+jax.
 """
 
 from genjax_tpu_torch.combinators import (
@@ -49,13 +54,16 @@ from genjax_tpu_torch.distributions import (
     bernoulli,
     beta,
     categorical,
+    dirichlet,
     flip,
     forward_filtering_backward_sampling,
+    gamma,
+    geometric,
     mv_normal_diag,
     normal,
     uniform,
 )
-from genjax_tpu_torch import inference
+from genjax_tpu_torch import adev, inference
 from genjax_tpu_torch.inference import (
     HMC,
     MALA,
@@ -78,6 +86,7 @@ from genjax_tpu_torch.inference import (
     reversible_jump,
     run_chains,
     smc,
+    vi,
 )
 from genjax_tpu_torch.lang import AddressReuse, MissingAddress, gen
 from genjax_tpu_torch.ops import logsumexp
@@ -118,16 +127,20 @@ __all__ = [
     "VectorRequest",
     "Vmap",
     "accumulate",
+    "adev",
     "bernoulli",
     "beta",
     "categorical",
     "contramap",
     "dimap",
+    "dirichlet",
     "enumerative_gibbs",
     "ess",
     "flip",
     "forward_filtering_backward_sampling",
+    "gamma",
     "gen",
+    "geometric",
     "gibbs_chain",
     "gibbs_sweep",
     "iterate",
@@ -155,5 +168,6 @@ __all__ = [
     "smc",
     "switch",
     "uniform",
+    "vi",
     "vmap",
 ]

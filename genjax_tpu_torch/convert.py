@@ -3,7 +3,8 @@
 The JAX side turns its values into numpy (`np.asarray`); these functions
 turn those into the port's objects: tensors, choice maps (string and
 integer address components), traces of `@gen` functions and of the
-combinators, chain batches and particle collections. Traces are rebuilt by the port's own fully
+combinators, chain batches, particle collections and variational
+parameters. Traces are rebuilt by the port's own fully
 constrained `generate`, so their scores are the port's densities of the
 carried values. Everything lands on the CUDA card unless the caller passes
 `device="cpu"`. This module imports no JAX.
@@ -13,6 +14,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from genjax_tpu_torch.core.choice_map import ChoiceMap
 from genjax_tpu_torch.core.gfi import GenerativeFunction, Trace
@@ -113,3 +115,19 @@ def particle_collection(
     particles = trace(gen_fn, args, choices, lw.shape[0], device, observations, kind)
     valid = is_valid if isinstance(is_valid, bool) else tensor(is_valid, device)
     return ParticleCollection(particles, lw, valid)
+
+
+def variational_params(params: Any, device: torch.device | str = "cuda") -> Any:
+    """Variational parameters trained in JAX (a tuple, list or dict of
+    numpy arrays or Python numbers, nested as the objective takes them) as
+    float32 tensors on `device`, in the same structure: with them, a guide
+    of the port computes the densities that the JAX guide does with the
+    JAX parameters.
+
+    >>> import numpy as np
+    >>> from genjax_tpu_torch import convert
+    >>> p = convert.variational_params((np.float32(1.6), {"log_sigma": np.zeros(2)}), device="cpu")
+    >>> p[0].dtype, p[1]["log_sigma"].shape
+    (torch.float32, torch.Size([2]))
+    """
+    return pytree.tree_map(lambda x: tensor(np.asarray(x, dtype=np.float32), device), params)

@@ -148,6 +148,17 @@ class GenerativeFunction(Generic[R], Pytree):
     def __call__(self, *args) -> "GenerativeFunctionClosure[R]":
         return GenerativeFunctionClosure(self, args)
 
+    def get_zero_trace(self, *args) -> Trace[R]:
+        """A trace of `self(*args)` with every tensor leaf zero, in the
+        shapes and dtypes a call gives: JAX's `empty_trace`, which takes
+        them from `eval_shape`. Here one call runs (on the arguments'
+        device, from a fixed generator) and its leaves are zeroed."""
+        from genjax_tpu_torch.core.typing import device_of
+
+        rng = torch.Generator(device=device_of(*pytree.tree_leaves(args))).manual_seed(0)
+        tr = self.simulate(rng, args)
+        return pytree.tree_map(lambda x: torch.zeros_like(x) if isinstance(x, torch.Tensor) else x, tr)
+
     def simulate(
         self, rng: torch.Generator, args: Arguments, n: int | None = None
     ) -> Trace[R]:

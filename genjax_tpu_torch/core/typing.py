@@ -35,6 +35,17 @@ def as_value(v: Any, device: torch.device | str) -> torch.Tensor:
     return torch.full((), v, dtype=torch.bool if isinstance(v, bool) else DEFAULT_DTYPE, device=device)
 
 
+def on_device(x: Any, device: torch.device | str, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """`x` as a tensor on `device` (of `dtype`, if given): a tensor is
+    moved, a Python number filled on the device (a copy from the host
+    would wait for a CUDA device), anything else (a numpy array) copied."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device, dtype) if dtype is not None else x.to(device)
+    if isinstance(x, (bool, int, float)):
+        return torch.full((), x, dtype=dtype or (DEFAULT_DTYPE if isinstance(x, float) else None), device=device)
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
 def host_scalar(v: Any) -> float | None:
     """The value of `v` as a Python float when the host can read it for
     free: a Python number, or a 0-d CPU tensor. None otherwise, and never

@@ -13,7 +13,10 @@ from genjax_tpu_torch.distributions.library import (
     bernoulli,
     beta,
     categorical,
+    dirichlet,
     flip,
+    gamma,
+    geometric,
     mv_normal_diag,
     normal,
     uniform,
@@ -28,8 +31,11 @@ __all__ = [
     "bernoulli",
     "beta",
     "categorical",
+    "dirichlet",
     "exact_density",
     "flip",
+    "gamma",
+    "geometric",
     "forward_filtering_backward_sampling",
     "mv_normal_diag",
     "normal",

@@ -1,9 +1,12 @@
-"""The distributions of the particle, MCMC and combinator paths: `normal`,
-`uniform`, `beta`, `flip`, `bernoulli`, `categorical` and `mv_normal_diag`.
+"""The distributions of the particle, MCMC, combinator and VI paths:
+`normal`, `uniform`, `beta`, `gamma`, `dirichlet`, `flip`, `bernoulli`,
+`geometric`, `categorical` and `mv_normal_diag`.
 
-Counterpart of the same seven in `genjax_tpu/distributions/library.py`,
+Counterpart of the same ten in `genjax_tpu/distributions/library.py`,
 with their parameterizations and support semantics: a value outside the
-support scores exactly `-inf` (`_guard_support`). Samplers draw from a
+support scores exactly `-inf` (`_guard_support`), a non-integer count
+for `geometric` included (the reference scores it finitely: its fault R3,
+recorded in `tests/test_torch_distributions.py`). Samplers draw from a
 `torch.Generator` on the generator's device. Parameters may be scalars or
 tensors (a vector `loc` draws a vector). With a particle count `n` a site
 draws `(n, *per-particle shape)` values (`core.typing.sample_shape`): a
@@ -19,9 +22,9 @@ import torch
 
 from genjax_tpu_torch.core.gfi import GenerativeFunctionClosure
 from genjax_tpu_torch.core.pytree import Pytree
-from genjax_tpu_torch.core.typing import host_scalar, sample_shape
+from genjax_tpu_torch.core.typing import host_scalar, on_device, sample_shape
 from genjax_tpu_torch.distributions.distribution import ExactDensity, exact_density
-from genjax_tpu_torch.distributions.mathx import betaln, log, log1p, xlog1py, xlogy
+from genjax_tpu_torch.distributions.mathx import betaln, gammaln, log, log1p, xlog1py, xlogy
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -119,6 +122,56 @@ def _beta_logpdf(v, concentration1, concentration0):
 beta = exact_density(_beta_sample, _beta_logpdf, "beta")
 
 
+# -- gamma -----------------------------------------------------------------
+
+
+def _standard_gamma(rng, concentration, shape):
+    """Gamma(concentration, 1) draws of `shape` from `rng`: PyTorch's
+    sampler, whose backward is the implicit reparameterization gradient
+    with respect to the concentration (Figurnov et al. 2018)."""
+    c = on_device(concentration, rng.device, torch.float32)
+    return torch._standard_gamma(c.expand(shape).contiguous(), generator=rng)
+
+
+def _gamma_sample(rng, concentration, rate, n=None):
+    return _standard_gamma(rng, concentration, sample_shape(n, concentration, rate)) / rate
+
+
+def _gamma_logpdf(v, concentration, rate):
+    # v = 0 stays in the formula (xlogy gives the boundary limit for every
+    # concentration); v < 0 scores -inf.
+    return _guard_support(
+        v >= 0.0,
+        v,
+        1.0,
+        lambda vs: xlogy(concentration, rate) + xlogy(concentration - 1.0, vs) - rate * vs - gammaln(concentration),
+    )
+
+
+gamma = exact_density(_gamma_sample, _gamma_logpdf, "gamma")
+
+
+# -- dirichlet ---------------------------------------------------------------
+
+
+def _dirichlet_sample(rng, concentration, n=None):
+    g = _standard_gamma(rng, concentration, sample_shape(n, concentration))
+    return g / g.sum(-1, keepdim=True)
+
+
+def _dirichlet_logpdf(v, concentration):
+    # Each component in [0, 1] (the simplex's sum is not checked, as in the
+    # reference); the formula sees 0.5 outside, so no NaN reaches a gradient.
+    in_support = ((v >= 0.0) & (v <= 1.0)).all(-1)
+    vs = torch.where(in_support.unsqueeze(-1), v, 0.5)
+    conc = on_device(concentration, v.device, torch.float32)
+    lp = xlogy(conc - 1.0, vs).sum(-1) + torch.lgamma(conc.sum(-1)) - torch.lgamma(conc).sum(-1)
+    return torch.where(in_support, lp, -math.inf)
+
+
+dirichlet = exact_density(_dirichlet_sample, _dirichlet_logpdf, "dirichlet")
+
+
 # -- flip ------------------------------------------------------------------
 
 
@@ -175,6 +228,55 @@ class Bernoulli(ExactDensity):
 
 
 bernoulli = Bernoulli()
+
+
+# -- geometric ---------------------------------------------------------------
+
+
+def _geometric_sample(rng, p, n=None):
+    # The number of failures before the first success, by inversion.
+    u = 1e-7 + (1.0 - 1e-7) * _rand(rng, sample_shape(n, p))
+    return torch.floor(torch.log(u) / log1p(-p)).to(torch.int32)
+
+
+def _geometric_logpdf(v, p):
+    vf = torch.as_tensor(v).to(torch.float32)
+    return _guard_support((vf >= 0.0) & (vf == torch.floor(vf)), vf, 0.0, lambda vs: xlog1py(vs, -p) + log(p))
+
+
+def _probs(logits, probs):
+    if probs is not None:
+        return probs
+    return torch.sigmoid(logits) if isinstance(logits, torch.Tensor) else 1.0 / (1.0 + math.exp(-logits))
+
+
+@Pytree.dataclass
+class Geometric(ExactDensity):
+    """Geometric over `{0, 1, ...}` (the failures before the first
+    success; int32 draws), parameterized by `logits=` or `probs=`; a bare
+    positional parameter is logits. A negative or non-integer value scores
+    `-inf`.
+
+    >>> import torch
+    >>> from genjax_tpu_torch.distributions.library import geometric
+    >>> lp = geometric.logpdf(torch.tensor([0.0, 2.0, 1.5, -1.0]), probs=torch.tensor(0.5))
+    >>> [round(x, 4) for x in lp.tolist()]
+    [-0.6931, -2.0794, -inf, -inf]
+    """
+
+    def __call__(self, *args, logits=None, probs=None) -> GenerativeFunctionClosure:
+        if args:
+            logits = args[0]
+        return GenerativeFunctionClosure(self, (logits, probs))
+
+    def sample(self, rng, logits=None, probs=None, n=None):
+        return _geometric_sample(rng, _probs(logits, probs), n)
+
+    def logpdf(self, v, logits=None, probs=None):
+        return _geometric_logpdf(v, _probs(logits, probs))
+
+
+geometric = Geometric()
 
 
 # -- categorical -----------------------------------------------------------
@@ -248,4 +350,15 @@ def _mv_normal_diag_logpdf(v, loc, scale_diag):
 mv_normal_diag = exact_density(_mv_normal_diag_sample, _mv_normal_diag_logpdf, "mv_normal_diag")
 
 
-__all__ = ["bernoulli", "beta", "categorical", "flip", "mv_normal_diag", "normal", "uniform"]
+__all__ = [
+    "bernoulli",
+    "beta",
+    "categorical",
+    "dirichlet",
+    "flip",
+    "gamma",
+    "geometric",
+    "mv_normal_diag",
+    "normal",
+    "uniform",
+]

@@ -44,6 +44,11 @@ def xlog1py(x, y):
     return _x_times(log1p, x, y)
 
 
+def gammaln(a):
+    """`log Gamma(a)`; on the host for a Python number."""
+    return torch.lgamma(a) if isinstance(a, torch.Tensor) else math.lgamma(a)
+
+
 def betaln(a, b):
     """`log B(a, b)`; on the host when both are Python numbers."""
     if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):

@@ -17,12 +17,20 @@ threshold, no opt-in switch and no fallback from the kernel to the plain
 version. Each call is one kernel launch. Its scratch (one partial per
 block and the counter that picks the block that merges them) is allocated
 and zeroed once per (device, stream) and kept.
+
+The kernel's log-sum-exp is differentiable: where `x` requires a gradient
+(and autograd records), the launch runs inside a `torch.autograd.Function`
+whose backward is `g * exp(x - lse)` in plain torch ops, the gradient of
+`torch.logsumexp`. The ESS of `logsumexp_ess` has no gradient. The JAX
+package has no backward kernel to port: it differentiates XLA's
+`logsumexp`, its fused kernel being opt-in.
 """
 
 import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from genjax_tpu_torch.ops import _build
 
@@ -129,14 +137,54 @@ def _launch(x: torch.Tensor, out: torch.Tensor, ess: bool) -> None:
         raise RuntimeError(f"logsumexp kernel launch failed: CUDA error {err}.")
 
 
+def _forward(x: torch.Tensor, ess: bool) -> torch.Tensor:
+    """One launch: the log-sum-exp (0-d), or the pair (2 elements)."""
+    out = torch.empty(2 if ess else (), dtype=torch.float32, device=x.device)
+    _launch(x, out, ess)
+    return out
+
+
+def lse_backward(g: torch.Tensor, x: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """The gradient of `logsumexp` with respect to `x`: `g * exp(x - lse)`
+    (the softmax of `x` scaled by the incoming gradient `g`)."""
+    return g * torch.exp(x - lse)
+
+
+class _Differentiable(torch.autograd.Function):
+    """The kernel's forward with the log-sum-exp's gradient: one launch
+    forward, plain torch ops backward. With `ess`, the second output (the
+    ESS) is marked non-differentiable."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, ess: bool):
+        out = _forward(x, ess)
+        if not ess:
+            ctx.save_for_backward(x, out)
+            return out
+        lse, ess_value = out.unbind()
+        ctx.save_for_backward(x, lse)
+        ctx.mark_non_differentiable(ess_value)
+        return lse, ess_value
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g: torch.Tensor, *_ess_grad):
+        x, lse = ctx.saved_tensors
+        return lse_backward(g, x, lse), None
+
+
+def _recording(x: torch.Tensor) -> bool:
+    return x.requires_grad and torch.is_grad_enabled()
+
+
 def fused_logsumexp(x: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on a contiguous 1-D CUDA tensor; a float32
     0-d tensor on the same device, without a host synchronisation. Other
     real dtypes are cast to float32 first. Raises on anything else, and if
-    the kernel cannot be built or launched."""
+    the kernel cannot be built or launched. Differentiable where `x`
+    requires a gradient."""
     x = _checked(x)
-    out = torch.empty((), dtype=torch.float32, device=x.device)
-    _launch(x, out, False)
+    out = _Differentiable.apply(x, False) if _recording(x) else _forward(x, False)
     fused_logsumexp.launches += 1
     return out
 
@@ -144,12 +192,13 @@ def fused_logsumexp(x: torch.Tensor) -> torch.Tensor:
 def fused_logsumexp_ess(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """`(logsumexp(x), ess)` from one launch of the CUDA kernel, as two
     float32 0-d views of one 2-element tensor on `x`'s device, without a
-    host synchronisation. Takes and refuses what `fused_logsumexp` does."""
+    host synchronisation. Takes and refuses what `fused_logsumexp` does.
+    The log-sum-exp is differentiable where `x` requires a gradient; the
+    ESS is not."""
     x = _checked(x)
-    out = torch.empty(2, dtype=torch.float32, device=x.device)
-    _launch(x, out, True)
+    out = _Differentiable.apply(x, True) if _recording(x) else _forward(x, True).unbind()
     fused_logsumexp_ess.launches += 1
-    return out.unbind()
+    return out
 
 
 # Kernel launches since the count was last set to 0.

@@ -4,7 +4,8 @@ device synchronisation, and HMC's result against the CPU's); the
 combinator and branching paths; and the SMC path (the resamplers' maps,
 the filter with each resampler, `SMCDriver`, the SIR algorithms, PMMH,
 particle Gibbs, FFBS and tempered SMC), every leaf on the card and K1
-counted.
+counted; and K1's gradient (the kernel forward, `g * exp(x - lse)`
+backward, against `torch.logsumexp`'s) with the VI path on the card.
 
 These tests need a CUDA device (the kernel has no CPU mode) and skip
 without one. On a machine with the card and without JAX, run them with
@@ -667,3 +668,102 @@ def test_particle_mcmc_smoothing_and_tempering_on_the_card(cuda):
         assert _on_card((col, log_z), cuda) and abs(float(log_z) - (-0.25 - 0.5 * math.log(4 * math.pi))) < 0.1
     col, log_z, betas = smc.run_adaptive(rng, target)
     assert _on_card((col, log_z), cuda) and math.isfinite(float(log_z))
+
+
+GRAD_SIZES = [1, 4_096, 1_000_000]
+
+
+@pytest.mark.parametrize("n", GRAD_SIZES)
+def test_kernel_gradient_matches_the_plain_twin(cuda, n):
+    # The forward launches the kernel once and records a gradient; the
+    # backward equals torch.logsumexp's within 1e-6 of max(1, |ref|) per
+    # element, aligned and not.
+    rng = torch.Generator(device=cuda).manual_seed(n)
+    base = 3.0 * torch.randn(n + 3, generator=rng, device=cuda)
+    for s in (0, 1, 3):
+        x = base[s : s + n].detach().requires_grad_()
+        before = fused_logsumexp.launches
+        out = logsumexp(x)
+        assert fused_logsumexp.launches == before + 1 and out.grad_fn is not None
+        (got,) = torch.autograd.grad(out, x)
+        (ref,) = torch.autograd.grad(torch.logsumexp(x, 0), x)
+        assert float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max()) <= 1e-6
+        _close(out.detach(), logsumexp_plain(x.detach()))
+
+
+def test_ess_has_no_gradient_and_its_logsumexp_has_one(cuda):
+    x = torch.randn(10_000, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1)).requires_grad_()
+    before = fused_logsumexp_ess.launches
+    lse, ess = logsumexp_ess(x)
+    assert fused_logsumexp_ess.launches == before + 1
+    assert lse.grad_fn is not None and not ess.requires_grad
+    (got,) = torch.autograd.grad(2.0 * lse, x)
+    (ref,) = torch.autograd.grad(2.0 * torch.logsumexp(x, 0), x)
+    assert float((got - ref).abs().max()) <= 1e-6
+    _pair_close((lse.detach(), ess), logsumexp_ess_plain(x.detach()))
+
+
+def test_without_a_gradient_the_kernel_path_is_unchanged(cuda):
+    x = torch.randn(4096, device=cuda)
+    with torch.no_grad():
+        out = logsumexp(x.requires_grad_())
+    assert out.grad_fn is None
+    _close(out, logsumexp_plain(x.detach()))
+
+
+def test_an_elbo_step_on_the_card_gives_a_finite_gradient(cuda):
+    # The RAVI model's ELBO gradient at (0, 0): its one-particle LML goes
+    # through the kernel, forward and backward; the mean of 64 estimates
+    # lies within 5 SE of the closed form (-8, 4).
+    from genjax_tpu_torch.inference import vi
+    from genjax_tpu_torch.models import ravi
+
+    step = vi.ELBO(ravi.guide, ravi.make_target)
+    rng = torch.Generator(device=cuda).manual_seed(0)
+    before = fused_logsumexp.launches
+    grads = torch.stack([torch.stack(step(rng, (0.0, 0.0))) for _ in range(64)]).double()
+    assert fused_logsumexp.launches >= before + 64
+    assert grads.device.type == "cuda" and bool(torch.isfinite(grads).all())
+    se = grads.std(0) / 8.0
+    assert bool(((grads.mean(0) - torch.tensor([-8.0, 4.0], device=cuda, dtype=torch.float64)).abs() < 5 * se).all())
+
+
+def test_vi_entry_points_on_the_card(cuda):
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.inference.nested import NestedSampler
+    from genjax_tpu_torch.models import ravi
+
+    params = ravi.train_guide(0, n_steps=150)
+    assert all(p.device.type == "cuda" for p in params)
+    assert abs(float(params[0]) - 1.6) < 0.25
+    lml = ravi.nested_smc_lml(1, params, 100_000)
+    assert lml.device.type == "cuda" and abs(float(lml) - ravi.exact_lml()) < 0.01
+
+    @gx.gen
+    def model():
+        x = gx.normal(0.0, 1.0) @ "x"
+        _ = gx.normal(x, 0.5) @ "y"
+
+    ns = NestedSampler(model, (), gx.ChoiceMap.kw(y=1.0), gx.Selection.at["x"], n_live=100, n_iters=300, n_mcmc=5)
+    before = fused_logsumexp.launches
+    out = ns.run(torch.Generator(device=cuda).manual_seed(2))
+    assert fused_logsumexp.launches == before + 2  # the evidence and its live remainder
+    assert out["lml"].device.type == "cuda" and math.isfinite(float(out["lml"]))
+
+
+def test_elbo_training_and_fit_make_no_device_sync(cuda):
+    from genjax_tpu_torch.inference import vi
+    from genjax_tpu_torch.models import ravi
+
+    rng = torch.Generator(device=cuda).manual_seed(5)
+    step = vi.ELBO(ravi.guide, ravi.make_target)
+    ravi.train_guide(rng, n_steps=2)  # warm up
+    vi.fit(rng, step, (0.0, 0.0), n_steps=2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # a synchronising call raises
+    try:
+        params = ravi.train_guide(rng, n_steps=10)
+        fitted, norms = vi.fit(rng, step, (0.0, 0.0), n_steps=10)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert params[0].device.type == "cuda" and norms.shape == (10,) and fitted[0].device.type == "cuda"

@@ -182,3 +182,42 @@ def test_importing_the_kernel_module_needs_no_nvcc_or_gpu():
     )
     assert out.returncode == 0, out.stderr
     assert float(out.stdout) == pytest.approx(np.log(4.0))
+
+
+def _stand_in_launch(x, out, ess):
+    """The kernel's contract, computed by the plain twins on the CPU: what
+    `_launch` writes into `out`."""
+    with torch.no_grad():
+        if ess:
+            out.copy_(torch.stack(logsumexp_ess_plain(x)))
+        else:
+            out.copy_(logsumexp_plain(x))
+
+
+def test_the_kernel_wrappers_gradient_is_the_softmax(monkeypatch):
+    # The autograd wiring of the kernel's wrappers, with the launch replaced
+    # by its plain twins (the kernel itself runs on the card only:
+    # `tests/test_torch_cuda.py`): one launch forward, `g * exp(x - lse)`
+    # backward, the ESS without a gradient.
+    module = sys.modules["genjax_tpu_torch.ops.logsumexp"]
+    monkeypatch.setattr(module, "_launch", _stand_in_launch)
+    x = torch.from_numpy((3.0 * np.random.default_rng(7).standard_normal(1000)).astype(np.float32)).requires_grad_()
+    (ref,) = torch.autograd.grad(torch.logsumexp(x, 0) * 2.5, x)
+    out = module._Differentiable.apply(x, False)
+    assert out.grad_fn is not None
+    (got,) = torch.autograd.grad(out * 2.5, x)
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+    lse, ess = module._Differentiable.apply(x, True)
+    assert lse.grad_fn is not None and not ess.requires_grad
+    (got,) = torch.autograd.grad(lse * 2.5, x)
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(module.lse_backward(torch.tensor(2.5), x.detach(), torch.logsumexp(x.detach(), 0)), ref)
+
+
+def test_the_cpu_path_stays_the_plain_twin_with_a_gradient():
+    x = torch.randn(50, generator=torch.Generator().manual_seed(3), requires_grad=True)
+    (got,) = torch.autograd.grad(logsumexp(x), x)
+    (lse_got,) = torch.autograd.grad(logsumexp_ess(x)[0], x)
+    (ref,) = torch.autograd.grad(torch.logsumexp(x, 0), x)
+    torch.testing.assert_close(got, ref)
+    torch.testing.assert_close(lse_got, ref)
