@@ -56,8 +56,20 @@ against `torch.logsumexp`'s on the run's own weights within 1e-6), 20
 guided LML estimates at K=1M against the exact LML, and the nested
 sampler at its JAX test's size against the exact evidence. K1's gradient
 is also held against the plain twin's at every kernel size and its
-backward timed beside `torch.logsumexp`'s. Every phase raises on failure;
-nothing is caught.
+backward timed beside `torch.logsumexp`'s. Then the library path
+(`phase_library`): each of the 48 distributions drawn at a million values
+through `simulate`, held against its closed-form moments (a median or a
+probability for the heavy tails) and its float64 SciPy density, and
+timed; the three rejection samplers at concentrations 0.01, 1 and 100,
+every lane accepted, their trips and host reads counted; the Dirichlet
+mixture at the cookbook's size with the JAX test's five assertions and at
+N=1,000,000 over 50 sweeps (score against a fresh `assess`, every sweep's
+counts adding to N, 0 synchronisations per sweep, time, peak memory);
+stochastic volatility at K=1024, T=200: 20 filters against the CPU plain
+path with one `logsumexp_ess` launch per step and K1 held against its
+plain twin on the steps' own weights, 100 PMMH steps, and particle Gibbs
+at its JAX test's size. Every phase raises on failure; nothing is
+caught.
 
 Run from the repository root, with one CUDA card visible:
 
@@ -146,6 +158,15 @@ SYNC_STEPS = 10  # the ELBO steps over which syncs are counted
 NESTED_Y = (1.0, -0.5, 2.0)
 NESTED = dict(n_live=400, n_iters=2400, n_mcmc=20, step_scale=0.4)
 # K1's backward, `g * exp(x - lse)`: x read, the gradient written.
+# The library path (`phase_library`): every distribution at a million draws,
+# the rejection samplers at three concentrations, the Dirichlet mixture
+# (`models/gmm.py::BenchConfig`) and stochastic volatility
+# (`models/stochvol.py::BenchConfig`; particle Gibbs at its JAX test's size).
+LIBRARY_DRAWS = 1_000_000
+LIBRARY_LOGPDF = 4_096
+REJECTION_CONCENTRATIONS = (0.01, 1.0, 100.0)
+GMM_SYNC_SWEEPS = 5
+PG_SV = dict(n_particles=128, T=120, n_sweeps=20, theta_steps=3)
 BACKWARD_BYTES_PER_VALUE = 8
 GRAD_TOLERANCE = 1e-6  # per element, relative to max(1, |ref|)
 
@@ -1718,6 +1739,220 @@ def phase_vi(gx, ops, card: str, dev: str = "cuda") -> float:
     return grad_err
 
 
+def phase_library(gx, ops, card: str, dev: str = "cuda") -> None:
+    """The library path. D: each of the 48 distributions drawn at a
+    million values through `simulate` (`distributions/library_checks.py`:
+    moments, a median or a probability within 5 SE of the closed form, the
+    support, and the log density of the first 4096 draws against the
+    float64 reference), timed, and the three rejection samplers at
+    concentrations 0.01, 1 and 100 (every lane accepted; trips and host
+    reads counted). G0: the cookbook's Dirichlet mixture (N=300, 100
+    sweeps) with the JAX test's five assertions; G1: a million points, 50
+    sweeps, the score against a fresh `assess` and each site's against a
+    fresh trace's, every sweep's counts adding to N, 0 syncs per sweep,
+    time and peak memory. SV0: 20 SV filters at
+    the truth (K=1024, T=200) against the CPU plain path, one
+    `logsumexp_ess` launch per step, K1 against its plain twin on the
+    weights the steps reduce; SV1: 100 PMMH steps; SV2: particle Gibbs at
+    its JAX test's size (one `logsumexp` launch per CSMC step)."""
+    from genjax_tpu_torch import profiling
+    from genjax_tpu_torch.distributions import library as lib
+    from genjax_tpu_torch.distributions import library_checks
+    from genjax_tpu_torch.inference.particle_gibbs import ParticleGibbs
+    from genjax_tpu_torch.models import gmm, stochvol
+
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    rng = torch.Generator(device=dev).manual_seed(17)
+    profiles = dict(zip(("G1", "SV1"), profiling.library_configurations(torch.Generator(device=dev).manual_seed(5), str(dev))))
+
+    # D: every distribution at a million draws.
+    t0 = time.perf_counter()
+    results = []
+    for name, case in library_checks.cases().items():
+        dist = getattr(lib, name)
+        params = case.params(dev)
+        dist.simulate(rng, dist.bind(params, case.kwargs) if case.kwargs else params, n=4_096)  # warm up
+        r = library_checks.check(name, case, rng, LIBRARY_DRAWS, LIBRARY_LOGPDF)
+        results.append(r)
+        print(f"D {name}: {r['ms']:.3f} ms per {LIBRARY_DRAWS} draws; " + ", ".join(
+            f"{k} {v:.2f}" if k.endswith("_se") else f"{k} {v:.2e}" for k, v in r.items() if k.endswith(("_se", "_err"))))
+    check(len(results) == 48, f"D: {len(results)} distributions checked, not 48")
+    slowest = sorted(results, key=lambda r: -r["ms"])[:5]
+    print(f"[{card}] D: 48 distributions at {LIBRARY_DRAWS} draws each through simulate (CUDA events, one call each "
+          f"after a warm-up): median {statistics.median(r['ms'] for r in results):.3f} ms; slowest " + ", ".join(
+              f"{r['name']} {r['ms']:.3f} ms" for r in slowest) + f"; largest logpdf error against float64 "
+          f"{max(r.get('logpdf_err', 0.0) for r in results):.2e} (tolerance 1e-5 of max(1, |ref|)); D took "
+          f"{time.perf_counter() - t0:.1f} s")
+    mu = torch.tensor([0.0, 0.6, 0.8], device=dev)
+    samplers = {
+        "von_mises": lambda c: lib.von_mises.simulate(rng, (0.0, c), n=LIBRARY_DRAWS),
+        "von_mises_fisher": lambda c: lib.von_mises_fisher.simulate(rng, (mu, c), n=LIBRARY_DRAWS),
+        "zipf": lambda c: lib.zipf.simulate(rng, (1.0 + c,), n=LIBRARY_DRAWS),  # power 1 + concentration
+    }
+    for c in REJECTION_CONCENTRATIONS:
+        parts = []
+        for name, draw in samplers.items():
+            syncs = count_syncs(lambda: draw(c))
+            stats = lib.rejection_stats[name]
+            check(stats["accepted"], f"D {name} at {c}: not every lane accepted in {stats['trips']} trips")
+            check(syncs == stats["syncs"], f"D {name} at {c}: {syncs} device synchronisations, {stats['syncs']} host reads")
+            parts.append(f"{name} {stats['trips']} trips, {syncs} syncs")
+        print(f"D rejection samplers at concentration {c} ({LIBRARY_DRAWS} lanes, all accepted; the host reads "
+              f"'all accepted' every {lib.REJECTION_CHECK_EVERY} trips): " + "; ".join(parts))
+
+    # G0: the cookbook's mixture.
+    g = gmm.BenchConfig()
+    true_means = torch.tensor(g.true_means, device=dev)
+    true_probs = torch.tensor(g.true_probs, device=dev)
+    true_idx, obs = gmm.simulate_gmm_data(rng, g.small_n, g.true_means, g.true_probs, device=dev)
+    trace = gmm.run_gibbs(rng, obs, g.k, g.small_sweeps, device=dev)
+    chm = trace.get_choices()
+    score, _ = gmm.make_gmm(g.k, g.small_n, device=dev).assess(chm, ())
+    check(math.isclose(float(trace.get_score()), float(score), abs_tol=1e-2, rel_tol=1e-5),
+          f"G0: the trace's score {float(trace.get_score())} against a fresh assess {float(score)}")
+    means = torch.sort(chm["means"]).values
+    check(bool(((means - true_means).abs() < 0.3).all()), f"G0: means {means.tolist()}")
+    order = torch.argsort(chm["means"])
+    check(bool(((chm["probs"][order] - true_probs).abs() < 0.12).all()), f"G0: weights {chm['probs'][order].tolist()}")
+    accuracy = float((torch.argsort(order)[chm["idx"]] == true_idx).float().mean())
+    check(accuracy > 0.95, f"G0: assignment accuracy {accuracy}")
+    check(bool((chm["obs"] == obs).all()), "G0: the observations moved")
+    print(f"G0 Dirichlet mixture (cookbook: N={g.small_n}, K={g.k}, {g.small_sweeps} sweeps): means "
+          f"{[round(x, 3) for x in means.tolist()]}, weights {[round(x, 3) for x in chm['probs'][order].tolist()]}, "
+          f"accuracy {accuracy:.3f}, score == assess; the JAX test's five assertions hold")
+
+    # G1: a million points.
+    _, obs1 = gmm.simulate_gmm_data(rng, g.wide_n, g.true_means, g.true_probs, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trace = gmm.init_gibbs(rng, obs1, g.k, device=dev)
+    torch.cuda.synchronize()
+    init_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    counts = []
+    for _ in range(g.wide_sweeps):
+        trace, c = gmm.gibbs_sweep(rng, trace, obs1, g.k)
+        counts.append(c)
+    torch.cuda.synchronize()
+    sweep_ms = 1e3 * (time.perf_counter() - t0) / g.wide_sweeps
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = torch.stack(counts)
+    check(bool((counts.sum(-1) == g.wide_n).all()), f"G1: counts add to {counts.sum(-1).tolist()}, not {g.wide_n}")
+    wide_model = gmm.make_gmm(g.k, g.wide_n, device=dev)
+    score, _ = wide_model.assess(trace.get_choices(), ())
+    got = float(trace.get_score())
+    check(math.isclose(got, float(score), abs_tol=1e-2, rel_tol=1e-5), f"G1: score {got} against assess {float(score)}")
+    # At a million points rtol 1e-5 of the joint is about 12 nats, more than
+    # the means' and weights' whole terms: each site's score is also held
+    # against the same site of a fresh trace of the same choices (0 on the
+    # CPU; 1e-5 for the two small sites, 1e-3 for the two of a million
+    # terms), and its gap to the float64 density is printed.
+    def normal_lp64(v, mu, sigma):
+        return -0.5 * ((v - mu) / sigma) ** 2 - math.log(sigma) - 0.5 * math.log(2.0 * math.pi)
+
+    fresh = wide_model.importance(rng, trace.get_choices(), ())[0]
+    chm = trace.get_choices()
+    m64, p64 = chm["means"].double(), chm["probs"].double()
+    f64 = {"means": normal_lp64(m64, 0.0, 10.0).sum(), "probs": math.lgamma(g.k),  # Dirichlet(1, ..., 1)
+           "idx": torch.log(p64)[chm["idx"]].sum(), "obs": normal_lp64(obs1.double(), m64[chm["idx"]], 0.5).sum()}
+    gaps = []
+    for addr, atol in (("means", 1e-5), ("probs", 1e-5), ("idx", 1e-3), ("obs", 1e-3)):
+        site, again = float(trace.subtraces[addr].get_score()), float(fresh.subtraces[addr].get_score())
+        check(abs(site - again) <= atol, f"G1: the {addr} site's score {site} against a fresh one {again}")
+        gaps.append(f"{addr} {site:.6f} (fresh {abs(site - again):.3g}, float64 {abs(site - float(f64[addr])):.3g})")
+    del fresh, chm, m64, p64, f64
+    state = [trace]
+
+    def sweeps():
+        for _ in range(GMM_SYNC_SWEEPS):
+            state[0] = gmm.gibbs_sweep(rng, state[0], obs1, g.k)[0]
+
+    syncs = count_syncs(sweeps)
+    check(syncs == 0, f"G1: {syncs} device synchronisations over {GMM_SYNC_SWEEPS} sweeps")
+    wide_means = torch.sort(trace.get_choices()["means"]).values.tolist()
+    print(f"G1 Dirichlet mixture N={g.wide_n}, K={g.k}, {g.wide_sweeps} sweeps: score {got!r} == assess "
+          f"{float(score)!r} (atol 1e-2, rtol 1e-5; gap {abs(got - float(score)):.3g}); site scores against a fresh "
+          f"trace's and float64: {'; '.join(gaps)}; every sweep's counts add to N; means {[round(x, 4) for x in wide_means]}")
+    print(f"[{card}] G1 Gibbs sweep N={g.wide_n}: {sweep_ms:.3f} ms per sweep (host clock over {g.wide_sweeps} sweeps "
+          f"between syncs; the chain's start {init_ms:.1f} ms), {g.wide_n / (sweep_ms * 1e-3):.4g} assignments/s; "
+          f"{syncs} device synchronisations over {GMM_SYNC_SWEEPS} sweeps; peak device memory {peak / 2**20:.1f} MiB")
+    print_profile(card, "G1 Gibbs sweep at N=1M", profiling.trace(profiles["G1"][2], 1))
+    del trace, state, obs1
+
+    # SV0: the filter at the truth against the CPU plain path.
+    s = stochvol.BenchConfig()
+    K, T = s.n_particles, s.T
+    ys, theta = s.data(dev), stochvol.true_theta(dev)
+    pf = stochvol.make_sv_filter(K)
+
+    def run():
+        before = counted(ops)
+        lml, _ = pf.run(rng, ys, (theta,))
+        return lml, tuple(a - b for a, b in zip(counted(ops), before))
+
+    times, results = timed_runs(run, s.n_filters)
+    for _, launched in results:
+        check(launched == (0, T - 1), f"SV0: {launched} (logsumexp, logsumexp_ess) launches per filter, not (0, {T - 1})")
+    cpu_rng = torch.Generator().manual_seed(3)
+    ys_cpu, theta_cpu = s.data("cpu"), stochvol.true_theta("cpu")
+    cpu = [float(pf.run(cpu_rng, ys_cpu, (theta_cpu,))[0]) for _ in range(s.n_filters)]
+    card_lmls = [float(lml) for lml, _ in results]
+    dist = within_combined_se(torch.tensor(card_lmls)[:, None], torch.tensor(cpu)[:, None], "SV0 LML against the CPU")
+    syncs = count_syncs(lambda: pf.run(rng, ys, (theta,)))
+    _, _, lws = dataclasses.replace(pf, ess_threshold=0.0).run(rng, ys, (theta,), collect=lambda z, lw: lw)
+    err, twin = (max(e) for e in zip(*(k1_against_plain(ops, lws[t]) for t in range(1, T))))
+    ms = statistics.median(times)
+    print(f"SV0 stochastic volatility at the truth K={K} T={T}, {s.n_filters} filters: mean LML "
+          f"{statistics.fmean(card_lmls):.4f} on the card against {statistics.fmean(cpu):.4f} on the CPU plain path "
+          f"({dist:.2f} combined SE apart, within 5); K1 == plain on the weights each of the {T - 1} steps reduced: max "
+          f"|err| / max(1, |plain|) {err:.3e} (tolerance 1e-5; the float32 twin's own ESS {twin:.3e} off)")
+    print(f"[{card}] SV0 filter K={K} T={T}: {ms:.3f} ms/filter (median of {s.n_filters}; host clock between syncs), "
+          f"{K * T / (ms * 1e-3):.4g} particle-steps/s; 1 K1 launch (logsumexp_ess) and {syncs / (T - 1):.2f} device "
+          f"synchronisations per step")
+    print_profile(card, "SV1 filter K=1024 T=200", profiling.trace(profiles["SV1"][2], profiles["SV1"][1]))
+
+    # SV1: PMMH over the parameters.
+    before = counted(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, thetas, lmls, accepts = stochvol.run_sv_pmmh(rng, ys, n_particles=K, n_steps=s.pmmh_steps, device=dev)
+    torch.cuda.synchronize()
+    pmmh_ms = 1e3 * (time.perf_counter() - t0)
+    launched = tuple(a - b for a, b in zip(counted(ops), before))
+    rate = float(accepts.float().mean())
+    check(bool(torch.isfinite(lmls).all()), "SV1: a non-finite LML in the PMMH chain")
+    check(0.02 < rate < 0.98, f"SV1: accept rate {rate}")
+    check(launched == (0, (s.pmmh_steps + 1) * (T - 1)), f"SV1: K1 launches {launched} over {s.pmmh_steps} steps")
+    step_ms = pmmh_ms / (s.pmmh_steps + 1)
+    print(f"SV1 PMMH K={K} T={T}, {s.pmmh_steps} steps: accept rate {rate:.3f}, every LML finite; last theta "
+          f"phi {math.tanh(float(thetas['phi'][-1])):.3f}, sigma {math.exp(float(thetas['log_sigma'][-1])):.3f}, "
+          f"beta {math.exp(float(thetas['log_beta'][-1])):.3f}")
+    print(f"[{card}] SV1 PMMH: {step_ms:.2f} ms per PMMH step (one filter each; {pmmh_ms / 1e3:.2f} s for "
+          f"{s.pmmh_steps} steps and the start, host clock between syncs), "
+          f"{K * T * (s.pmmh_steps + 1) / (pmmh_ms * 1e-3):.4g} particle-steps/s")
+
+    # SV2: particle Gibbs on the same model, at its JAX test's size.
+    ys2 = stochvol.simulate_sv_data(2, PG_SV["T"], stochvol.true_theta("cpu"), device="cpu")[1].to(dev)
+    pg = ParticleGibbs(stochvol.make_sv_filter(PG_SV["n_particles"]), log_prior=stochvol.sv_log_prior,
+                       step_scales=0.08, theta_steps=PG_SV["theta_steps"])
+    before = counted(ops)
+    t0 = time.perf_counter()
+    _, path, (pg_thetas, pg_accepts) = pg.run(rng, stochvol.sv_theta(1.0, -1.0, 0.0, dev), ys2, n_sweeps=PG_SV["n_sweeps"])
+    torch.cuda.synchronize()
+    pg_ms = 1e3 * (time.perf_counter() - t0) / PG_SV["n_sweeps"]
+    launched = tuple(a - b for a, b in zip(counted(ops), before))
+    check(path.shape == (PG_SV["T"],) and bool(torch.isfinite(pg_thetas["phi"]).all()), "SV2: particle Gibbs output")
+    check(launched[0] > 0, f"SV2: particle Gibbs launched no logsumexp ({launched})")
+    print(f"SV2 particle Gibbs on SV (K={PG_SV['n_particles']}, T={PG_SV['T']}, {PG_SV['n_sweeps']} sweeps, "
+          f"{PG_SV['theta_steps']} theta steps each): finite, accept rate {float(pg_accepts.float().mean()):.3f}; "
+          f"K1 launches (logsumexp, logsumexp_ess) {launched}")
+    print(f"[{card}] SV2 particle Gibbs: {pg_ms:.1f} ms per sweep (host clock)")
+    print(f"[{card}] library phase: {time.perf_counter() - t_phase:.1f} s in all")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1754,6 +1989,7 @@ def main() -> None:
     }
     vi_grad_err = []
     paths["vi"] = drive(lambda: vi_grad_err.append(phase_vi(gx, ops, card)))
+    paths["library"] = drive(lambda: phase_library(gx, ops, card))
     backward["grad_max_abs_err"] = max(backward["grad_max_abs_err"], *vi_grad_err)
     launches = {name: sum(p[name] for p in paths.values()) for name in ("logsumexp", "logsumexp_ess")}
     for name, count in paths["particle"].items():
@@ -1764,6 +2000,8 @@ def main() -> None:
     for name, count in paths["smc"].items():
         check(count > 0, f"the SMC path launched no {name} kernel")
     check(paths["vi"]["logsumexp"] > 0, "the VI path (ELBO, IWELBO, the guided LML) launched no logsumexp kernel")
+    for name, count in paths["library"].items():
+        check(count > 0, f"the library path (the SV filter, PMMH, particle Gibbs) launched no {name} kernel")
     print("kernel launches on the main paths: " + ", ".join(
         f"{name} {count} (" + ", ".join(f"{path} path {p[name]}" for path, p in paths.items()) + ")"
         for name, count in launches.items()))

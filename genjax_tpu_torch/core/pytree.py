@@ -80,3 +80,29 @@ def n_leaves(tree: Any) -> int:
     if type(tree).__dict__.get("_leafless", False):
         return 0
     return len(pytree.tree_leaves(tree))
+
+
+@Pytree.dataclass
+class Const(Pytree):
+    """A static value carried through a pytree as context, never as a leaf
+    (JAX's `Const`, which keeps a value out of the tracers): a site's
+    `sample_shape=Const((n,))`, a count.
+
+    >>> from genjax_tpu_torch.core.pytree import Const
+    >>> c = Const((3,))
+    >>> c.unwrap(), Const.unwrap_value(c), Const.unwrap_value(4), n_leaves(c)
+    ((3,), (3,), 4, 0)
+    """
+
+    const: Any = Pytree.static()
+
+    def __call__(self, *args, **kwargs):
+        return self.const(*args, **kwargs)
+
+    def unwrap(self) -> Any:
+        return self.const
+
+    @staticmethod
+    def unwrap_value(v: Any) -> Any:
+        """`v`'s value if it is a `Const`, else `v` itself."""
+        return v.const if isinstance(v, Const) else v

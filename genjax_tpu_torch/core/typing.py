@@ -46,6 +46,17 @@ def on_device(x: Any, device: torch.device | str, dtype: torch.dtype | None = No
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 
+def as_generator(rng: torch.Generator | int, device: torch.device | str) -> torch.Generator:
+    """`rng` itself (which must live on `device`), or a generator on
+    `device` seeded with the int `rng`."""
+    device = torch.device(device)
+    if isinstance(rng, int):
+        return torch.Generator(device=device).manual_seed(rng)
+    if rng.device.type != device.type:
+        raise ValueError(f"the generator lives on {rng.device}, the run on {device}: pass device={str(rng.device)!r}")
+    return rng
+
+
 def host_scalar(v: Any) -> float | None:
     """The value of `v` as a Python float when the host can read it for
     free: a Python number, or a 0-d CPU tensor. None otherwise, and never

@@ -23,6 +23,7 @@ never with `dim=0` or a bare `.sum()`: then the same body runs for one
 particle, for K, and as a `Vmap` kernel for K particles times N lanes.
 """
 
+import inspect
 from typing import Any, Callable, Generic, TypeVar
 
 import torch
@@ -31,11 +32,11 @@ from torch._C import DisableTorchFunctionSubclass
 from genjax_tpu_torch.core.choice_map import ChoiceMap, Selection
 from genjax_tpu_torch.core.concepts import NotSupportedEditRequest, Score, Weight
 from genjax_tpu_torch.core.diff import Diff
-from genjax_tpu_torch.core.gfi import GenerativeFunction, Trace, Update
+from genjax_tpu_torch.core.gfi import GenerativeFunction, GenerativeFunctionClosure, Trace, Update
 from genjax_tpu_torch.core.mask import Mask, flag_on
-from genjax_tpu_torch.core.pytree import Pytree, n_leaves
+from genjax_tpu_torch.core.pytree import Const, Pytree, n_leaves
 from genjax_tpu_torch.core.requests import EmptyRequest, Regenerate
-from genjax_tpu_torch.core.typing import as_value, device_of, mark, plain
+from genjax_tpu_torch.core.typing import as_value, batch_dims, device_of, mark, plain
 
 R = TypeVar("R")
 
@@ -145,6 +146,23 @@ class Distribution(Generic[R], GenerativeFunction[R]):
     # one number per parameter (`categorical`: the axis over categories).
     param_event_extra: Any = 0
 
+    def __call__(self, *args, sample_shape=(), **kwargs) -> GenerativeFunctionClosure[R]:
+        """The site `self(*args)`, parameters by position or keyword
+        (`bind`); `sample_shape=` (a tuple or a `Const` of one) makes it
+        `prod(sample_shape)` independent draws (`SampleShaped`)."""
+        return self.closure(self.bind(args, kwargs), sample_shape)
+
+    def bind(self, args: tuple, kwargs: dict) -> tuple:
+        """The parameters as the flat positional tuple a trace stores."""
+        if kwargs:
+            raise TypeError(f"{type(self).__name__} takes its parameters by position")
+        return args
+
+    def closure(self, args: tuple, sample_shape: Any = ()) -> GenerativeFunctionClosure[R]:
+        shape = Const.unwrap_value(sample_shape)
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        return GenerativeFunctionClosure(SampleShaped(self, shape) if shape else self, args)
+
     def random_weighted(
         self, rng: torch.Generator, *args, n: int | None = None
     ) -> tuple[Score, R]:
@@ -164,7 +182,8 @@ class Distribution(Generic[R], GenerativeFunction[R]):
         with DisableTorchFunctionSubclass():
             return self.random_weighted(rng, *args, n=n)
 
-    def _density(self, rng, v, args: tuple):
+    def _density(self, rng, v, args: tuple, depth: int = 0):
+        """The elementwise density of `v`, which carries `depth` batch axes."""
         with DisableTorchFunctionSubclass():
             return self.estimate_logpdf(rng, v, *args)
 
@@ -202,12 +221,13 @@ class Distribution(Generic[R], GenerativeFunction[R]):
             _, fresh = self._fresh(rng, args, n, like)
             value = as_value(held.value, rng.device).to(fresh.dtype)
             v = torch.where(flag_on(flag, held.flag_depth, fresh, depth), value, fresh)
-            tr = self._trace(args, v, self._density(rng, v, args), depth)
+            tr = self._trace(args, v, self._density(rng, v, args, depth), depth)
             return tr, torch.where(flag, tr.score, 0.0)
         held = as_value(held, rng.device)
         # Constrained: the value is the constraint, stored as given (shared
         # unless it was marked per particle); the weight is its density.
-        tr = self._trace(args, held, self._density(rng, held, args), constraint.value_is_batched())
+        depth = constraint.value_is_batched()
+        tr = self._trace(args, held, self._density(rng, held, args, depth), depth)
         return tr, tr.score
 
     def assess(self, sample: ChoiceMap, args: tuple, n=None, marked: bool = False) -> tuple[Score, R]:
@@ -222,7 +242,7 @@ class Distribution(Generic[R], GenerativeFunction[R]):
             held = held.value
         held = as_value(held, device_of(*args))
         batched = sample.value_is_batched()
-        score = site_score(self._density(None, held, args), held, batched, args, self.param_event_extra)
+        score = site_score(self._density(None, held, args, batched), held, batched, args, self.param_event_extra)
         return score, mark(held, batched) if marked else held
 
     def project(self, rng, trace, selection: Selection) -> Weight:
@@ -283,7 +303,7 @@ class Distribution(Generic[R], GenerativeFunction[R]):
                     winner, batched = winner.expand(*lead, *winner.shape), trace.batched
                 discard = trace.get_choices()
             retdiff = Diff.unknown_change(winner)
-        new = self._trace(new_args, winner, self._density(rng, winner, new_args), batched)
+        new = self._trace(new_args, winner, self._density(rng, winner, new_args, batched), batched)
         return new, new.score - trace.score, retdiff, Update(discard)
 
     def edit_regenerate(self, rng, trace: DistributionTrace[R], selection: Selection, argdiffs, n=None):
@@ -295,7 +315,7 @@ class Distribution(Generic[R], GenerativeFunction[R]):
         held = trace.value
         chosen = selection.check()
         if chosen is False:
-            new = self._trace(new_args, held, self._density(rng, held, new_args), trace.batched)
+            new = self._trace(new_args, held, self._density(rng, held, new_args, trace.batched), trace.batched)
             return new, new.score - trace.score, Diff.no_change(held), Update(ChoiceMap.empty())
         if trace.batched:
             # The record of the old value says which parameters carry the
@@ -314,7 +334,7 @@ class Distribution(Generic[R], GenerativeFunction[R]):
         if chosen is not True:
             # Selected in some lanes only: the others keep their value.
             v = torch.where(_on_value(chosen, v, trace.batched), v, held)
-            w = self._density(rng, v, new_args)
+            w = self._density(rng, v, new_args, trace.batched)
         new = self._trace(new_args, v, w, trace.batched)
         return new, new.score - trace.score, Diff.unknown_change(new.value), Update(trace.get_choices())
 
@@ -336,11 +356,32 @@ class ExactDensity(Generic[R], Distribution[R]):
         return self.logpdf(v, *args)
 
 
+def _signature(fn: Callable[..., Any], skip: int) -> inspect.Signature | None:
+    """The parameters of `fn` after its first `skip`, without `n`: the
+    names a call may give by keyword (None where `fn` takes `*args`)."""
+    try:
+        params = list(inspect.signature(fn).parameters.values())[skip:]
+    except (TypeError, ValueError):
+        return None
+    params = [p for p in params if p.name != "n"]
+    if any(p.kind in (p.VAR_POSITIONAL, p.VAR_KEYWORD) for p in params):
+        return None
+    return inspect.Signature(params)
+
+
 def exact_density(
-    sample: Callable[..., Any], logpdf: Callable[..., Score], name: str
+    sample: Callable[..., Any],
+    logpdf: Callable[..., Score],
+    name: str,
+    param_event_extra: Any = 0,
+    signature: inspect.Signature | None = None,
 ) -> ExactDensity[Any]:
-    """A singleton `ExactDensity` from `sample(rng, *args, n=None)` and
-    `logpdf(v, *args)` callables.
+    """A singleton `ExactDensity` from `sample(rng, *params, n=None)` and
+    `logpdf(v, *params)` callables (JAX's `native_distribution`). A call
+    takes the parameters by position or by the names of `sample`'s
+    signature (or `signature`), its defaults filled in, and
+    `sample_shape=` (`Distribution.__call__`). `param_event_extra` is the
+    number of axes each parameter has that one draw lacks.
 
     >>> import math, torch
     >>> from genjax_tpu_torch.distributions.distribution import exact_density
@@ -352,16 +393,76 @@ def exact_density(
     >>> tr = expo.simulate(torch.Generator().manual_seed(0), (2.0,), n=4)
     >>> tr.get_retval().shape, bool((tr.get_score() <= math.log(2.0)).all())
     (torch.Size([4]), True)
+    >>> expo(rate=2.0).args
+    (2.0,)
     """
+    sig = signature if signature is not None else _signature(sample, 1)
 
     class _Density(ExactDensity):
-        def sample(self, rng, *args, n=None):
-            return sample(rng, *args, n=n)
+        def bind(self, args: tuple, kwargs: dict) -> tuple:
+            if not kwargs:
+                return args
+            if sig is None:
+                raise TypeError(f"{name} takes its parameters by position")
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            return tuple(bound.args)
 
-        def logpdf(self, v, *args):
+        def sample(self, rng, *args, n=None, **kwargs):
+            return sample(rng, *self.bind(args, kwargs), n=n)
+
+        def logpdf(self, v, *args, **kwargs):
+            args = self.bind(args, kwargs)
             return logpdf(as_value(v, device_of(*args)), *args)
 
+    _Density.param_event_extra = param_event_extra
     label = "genjax_tpu_torch." + name
     _Density.__name__ = label
     _Density.__qualname__ = label
     return Pytree.dataclass(_Density)()
+
+
+@Pytree.dataclass
+class SampleShaped(Distribution):
+    """The site `base(*params, sample_shape=shape)`: `prod(shape)`
+    independent draws of `base`, the value `(*batch, *shape, *per-draw
+    shape)` (the batch axes of the particles, and of the lanes under a
+    `Vmap`, in front), its score the sum over `shape`'s axes only. The
+    parameters are those of one draw: a per-particle parameter `(n, K)`
+    of a site with `shape=(N,)` gives `(n, N)` values. Internally the
+    draws and densities run with `shape`'s axes in front of the batch
+    axes, where the parameters broadcast as they are, and the value is
+    moved behind them."""
+
+    base: Distribution = Pytree.static()
+    shape: tuple = Pytree.static()
+
+    @property
+    def param_event_extra(self) -> Any:
+        extra, s = self.base.param_event_extra, len(self.shape)
+        return extra - s if isinstance(extra, int) else tuple(e - s for e in extra)
+
+    def _front(self, v, depth: int):
+        s = len(self.shape)
+        return v.movedim(tuple(range(depth, depth + s)), tuple(range(s))) if depth else v
+
+    def _sum(self, density):
+        s = len(self.shape)
+        return density.sum(dim=tuple(range(s))) if s else density
+
+    def random_weighted(self, rng, *args, n=None):
+        dims = batch_dims(n)
+        w, v = self.base.random_weighted(rng, *args, n=(*self.shape, *dims))
+        s = len(self.shape)
+        behind = v.movedim(tuple(range(s)), tuple(range(len(dims), len(dims) + s))) if dims else v
+        return self._sum(w), behind.contiguous()
+
+    def _density(self, rng, v, args: tuple, depth: int = 0):
+        if not isinstance(v, torch.Tensor) or v.dim() < depth + len(self.shape):
+            return super()._density(rng, v, args, depth)
+        with DisableTorchFunctionSubclass():
+            return self._sum(self.base.estimate_logpdf(rng, self._front(plain(v), depth), *args))
+
+    def estimate_logpdf(self, rng, v, *args):
+        """The density of a value without batch axes: summed over `shape`."""
+        return self._sum(self.base.estimate_logpdf(rng, v, *args))

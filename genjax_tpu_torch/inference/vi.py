@@ -35,7 +35,7 @@ from genjax_tpu_torch.adev.primitives import mv_normal_diag_reparam as _mv_norma
 from genjax_tpu_torch.adev.primitives import normal_reinforce as _normal_reinforce_prim
 from genjax_tpu_torch.adev.primitives import normal_reparam as _normal_reparam_prim
 from genjax_tpu_torch.core.choice_map import Choice, ChoiceMap, Static
-from genjax_tpu_torch.core.typing import on_device
+from genjax_tpu_torch.core.typing import as_generator, on_device
 from genjax_tpu_torch.distributions.distribution import ExactDensity, exact_density
 from genjax_tpu_torch.distributions.library import (
     _dirichlet_logpdf,
@@ -189,17 +189,6 @@ def QWake(
 # -- the optimization driver and automatic guides ------------------------------
 
 
-def _generator(rng: torch.Generator | int, device: torch.device | str) -> torch.Generator:
-    """`rng` itself (which must live on `device`), or a generator on
-    `device` seeded with the int `rng`."""
-    device = torch.device(device)
-    if isinstance(rng, int):
-        return torch.Generator(device=device).manual_seed(rng)
-    if rng.device.type != device.type:
-        raise ValueError(f"the generator lives on {rng.device}, the run on {device}: pass device={str(rng.device)!r}")
-    return rng
-
-
 def fit(
     rng: torch.Generator | int,
     grad_estimate: Callable[[torch.Generator, tuple], GradientEstimate],
@@ -219,7 +208,7 @@ def fit(
     `optax.adam`'s). `rng` is a generator on `device` or an int seed.
     Returns `(params, grad_norms)`, the norms one per step, on the device.
     """
-    rng = _generator(rng, device)
+    rng = as_generator(rng, device)
     leaves, spec = pytree.tree_flatten(init_params)
     params = [on_device(p, device, torch.float32).detach().clone().requires_grad_() for p in leaves]
     opt = (optimizer or partial(torch.optim.Adam, lr=1e-2))(params)
@@ -317,7 +306,7 @@ def advi(
         params, guide, make_target, _ = advi(rng, model, args, obs)
         _, latents = guide.random_weighted(rng, make_target(params))
     """
-    rng = _generator(rng, device)
+    rng = as_generator(rng, device)
     specs = _discover_flat_latents(model, args, constraint)
     guide = mean_field_guide(specs)
     init = mean_field_init(specs, device)

@@ -18,7 +18,7 @@ import torch
 
 from genjax_tpu_torch.adev.core import fork
 from genjax_tpu_torch.core.choice_map import ChoiceMap
-from genjax_tpu_torch.core.typing import on_device
+from genjax_tpu_torch.core.typing import as_generator, on_device
 from genjax_tpu_torch.distributions.library import normal
 from genjax_tpu_torch.inference import vi
 from genjax_tpu_torch.inference.smc import ImportanceK
@@ -59,7 +59,7 @@ def train_guide(
     """ELBO-train the guide's (mean, log-scale) from (0, 0) by plain
     gradient descent at rate `lr`; no host synchronisation per step.
     Returns the parameters as 0-d tensors on `device`."""
-    rng = vi._generator(rng, device)
+    rng = as_generator(rng, device)
     elbo_grad = vi.ELBO(guide, lambda vmu, vls: make_target(vmu, vls, obs))
     params = _params((0.0, 0.0), device)
     for _ in range(n_steps):
@@ -73,7 +73,7 @@ def nested_smc_lml(
 ) -> torch.Tensor:
     """The LML estimate with the trained guide as the SIR proposal (one
     launch of the logsumexp kernel on the card)."""
-    rng = vi._generator(rng, device)
+    rng = as_generator(rng, device)
     target = make_target(*_params(params, device), obs=obs)
     return ImportanceK(target, q=guide, k_particles=k_particles).estimate_normalizing_constant(rng, target)
 
@@ -87,7 +87,7 @@ def run_ravi(
 ):
     """The whole pipeline: `(params, guided LML, prior-proposal LML, exact
     LML)`."""
-    k1, k2, k3 = fork(vi._generator(rng, device), 3)
+    k1, k2, k3 = fork(as_generator(rng, device), 3)
     params = train_guide(k1, n_steps=n_train, obs=obs, device=device)
     lml_guided = nested_smc_lml(k2, params, k_particles, obs, device)
     target = make_target(*params, obs=obs)

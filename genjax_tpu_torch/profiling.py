@@ -1,5 +1,5 @@
-"""Where the time goes on the particle, MCMC, combinator, branching, SMC and
-VI paths, on one CUDA card.
+"""Where the time goes on the particle, MCMC, combinator, branching, SMC,
+VI and library paths, on one CUDA card.
 
 Traces each configuration that `chip_smoke.py` runs with `torch.profiler`
 (CUPTI device intervals) and prints, for each:
@@ -16,7 +16,8 @@ Traces each configuration that `chip_smoke.py` runs with `torch.profiler`
   HMC, per MALA sweep for polyreg, per scan step for the HMM unfold, per
   MH step, jump sweep or Gibbs sweep on the branching path, per filter
   step or `extend` on the SMC path, per round for the dense SMC round,
-  per estimate or gradient on the VI path), and the largest device items;
+  per estimate or gradient on the VI path, per Gibbs sweep (G1) or filter
+  step (SV1) on the library path), and the largest device items;
 - K1: the device kernels of the logsumexp kernel in the trace beside the
   launches its wrappers counted in the same run (one kernel per launch),
   and how many device items come from `torch.softmax`.
@@ -203,6 +204,25 @@ def vi_configurations(rng: torch.Generator, dev: str = "cuda") -> list:
     ]
 
 
+def library_configurations(rng: torch.Generator, dev: str = "cuda") -> list:
+    """(label, steps, fn) of the library path's configurations: G1 one
+    Gibbs sweep of the Dirichlet mixture at a million points
+    (`models/gmm.py::BenchConfig`), SV1 one stochastic-volatility bootstrap
+    filter at the model's default width (`models/stochvol.py::BenchConfig`)."""
+    from genjax_tpu_torch.models import gmm, stochvol
+
+    g, s = gmm.BenchConfig(), stochvol.BenchConfig()
+    _, obs = gmm.simulate_gmm_data(rng, g.wide_n, g.true_means, g.true_probs, device=dev)
+    trace = gmm.init_gibbs(rng, obs, g.k, device=dev)
+    ys, theta, pf = s.data(dev), stochvol.true_theta(dev), stochvol.make_sv_filter(s.n_particles)
+    return [
+        (f"G1 GMM Gibbs sweep N={g.wide_n} K={g.k} (assignments, weights, means: three dense Updates); one sweep", 1,
+         lambda: gmm.gibbs_sweep(rng, trace, obs, g.k)),
+        (f"SV1 stochastic-volatility bootstrap filter K={s.n_particles} T={s.T}; steps are filter steps", s.T,
+         lambda: pf.run(rng, ys, (theta,))),
+    ]
+
+
 def configurations():
     """(label, steps, fn) of each configuration, on the card."""
     import genjax_tpu_torch as gx
@@ -280,6 +300,7 @@ def configurations():
         *branching,
         *smc_configurations(rng),
         *vi_configurations(rng),
+        *library_configurations(rng),
     ]
 
 

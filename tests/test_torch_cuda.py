@@ -5,7 +5,9 @@ combinator and branching paths; and the SMC path (the resamplers' maps,
 the filter with each resampler, `SMCDriver`, the SIR algorithms, PMMH,
 particle Gibbs, FFBS and tempered SMC), every leaf on the card and K1
 counted; and K1's gradient (the kernel forward, `g * exp(x - lse)`
-backward, against `torch.logsumexp`'s) with the VI path on the card.
+backward, against `torch.logsumexp`'s) with the VI path on the card; and
+the library path: every distribution at a million draws, the rejection
+samplers, the Dirichlet mixture and stochastic volatility.
 
 These tests need a CUDA device (the kernel has no CPU mode) and skip
 without one. On a machine with the card and without JAX, run them with
@@ -767,3 +769,106 @@ def test_elbo_training_and_fit_make_no_device_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert params[0].device.type == "cuda" and norms.shape == (10,) and fitted[0].device.type == "cuda"
+
+
+# -- the library path -----------------------------------------------------------
+
+
+def _library_case_names():
+    from genjax_tpu_torch.distributions.library_checks import cases
+
+    return sorted(cases())
+
+
+@pytest.mark.parametrize("name", _library_case_names())
+def test_every_distribution_at_a_million_draws_on_the_card(cuda, name):
+    # Draws in the support, moments (or a median, or a probability) within
+    # 5 SE of the closed form, the log density of 4096 draws against the
+    # float64 reference (`distributions/library_checks.py`).
+    from genjax_tpu_torch.distributions import library_checks
+
+    out = library_checks.check(name, library_checks.cases()[name], torch.Generator(device=cuda).manual_seed(7), 1_000_000)
+    assert out["shape"][0] == 1_000_000
+
+
+@pytest.mark.parametrize("concentration", [0.01, 1.0, 100.0])
+def test_rejection_samplers_accept_every_lane_on_the_card(cuda, concentration):
+    from genjax_tpu_torch.distributions import library as lib
+
+    rng = torch.Generator(device=cuda).manual_seed(3)
+    mu = torch.tensor([0.0, 0.6, 0.8], device=cuda)
+    for name, draw in (
+        ("von_mises", lambda: lib.von_mises.sample(rng, 0.0, concentration, n=1_000_000)),
+        ("von_mises_fisher", lambda: lib.von_mises_fisher.sample(rng, mu, concentration, n=1_000_000)),
+        ("zipf", lambda: lib.zipf.sample(rng, 1.0 + concentration, n=1_000_000)),
+    ):
+        x = draw()
+        stats = lib.rejection_stats[name]
+        assert stats["accepted"] and x.device.type == "cuda", (name, stats)
+        assert stats["syncs"] == math.ceil(stats["trips"] / lib.REJECTION_CHECK_EVERY)
+
+
+def test_gmm_cookbook_recovery_and_no_sync_per_sweep_on_the_card(cuda):
+    from genjax_tpu_torch.models import gmm
+
+    g = gmm.BenchConfig()
+    rng = torch.Generator(device=cuda).manual_seed(1)
+    true_idx, obs = gmm.simulate_gmm_data(rng, g.small_n, g.true_means, g.true_probs)
+    trace, counts = gmm.init_gibbs(rng, obs, g.k), []
+    for _ in range(g.small_sweeps):
+        trace, c = gmm.gibbs_sweep(rng, trace, obs, g.k)
+        counts.append(c)
+    counts = torch.stack(counts)
+    chm = trace.get_choices()
+    score, _ = gmm.make_gmm(g.k, g.small_n).assess(chm, ())
+    assert math.isclose(float(trace.get_score()), float(score), abs_tol=1e-2, rel_tol=1e-5)
+    means = torch.sort(chm["means"]).values.cpu()
+    assert bool(((means - torch.tensor(g.true_means)).abs() < 0.3).all()), means
+    order = torch.argsort(chm["means"])
+    assert bool(((chm["probs"][order].cpu() - torch.tensor(g.true_probs)).abs() < 0.12).all())
+    assert float((torch.argsort(order)[chm["idx"]] == true_idx).float().mean()) > 0.95
+    assert bool((chm["obs"] == obs).all()) and bool((counts.sum(-1) == g.small_n).all())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # a synchronising call raises
+    try:
+        for _ in range(3):
+            trace, _ = gmm.gibbs_sweep(rng, trace, obs, g.k)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_sv_pmmh_recovers_the_parameters_on_the_card(cuda):
+    # The JAX test's recovery (`tests/inference/test_stochvol.py`): 256
+    # particles, 400 PMMH steps, T=200, its tolerances; one logsumexp_ess
+    # launch per filter step.
+    import numpy as np
+
+    from genjax_tpu_torch.models import stochvol as sv
+
+    _, ys = sv.simulate_sv_data(0, 200, sv.true_theta())
+    before = fused_logsumexp_ess.launches
+    _, thetas, lmls, accs = sv.run_sv_pmmh(1, ys, n_particles=256, n_steps=400)
+    assert fused_logsumexp_ess.launches - before == 401 * 199
+    assert bool(torch.isfinite(lmls).all()) and 0.1 < float(accs.float().mean()) < 0.95
+    phis = np.tanh(thetas["phi"][150:].cpu().numpy())
+    sigmas = np.exp(thetas["log_sigma"][150:].cpu().numpy())
+    betas = np.exp(thetas["log_beta"][150:].cpu().numpy())
+    assert abs(phis.mean() - 0.9) < 0.17, phis.mean()
+    assert abs(sigmas.mean() - 0.3) < 0.25, sigmas.mean()
+    assert abs(betas.mean() - 0.8) < 0.30, betas.mean()
+
+
+def test_particle_gibbs_on_sv_on_the_card(cuda):
+    import numpy as np
+
+    from genjax_tpu_torch.inference.particle_gibbs import ParticleGibbs
+    from genjax_tpu_torch.models import stochvol as sv
+
+    _, ys = sv.simulate_sv_data(2, 120, sv.true_theta())
+    pg = ParticleGibbs(sv.make_sv_filter(128), log_prior=sv.sv_log_prior, step_scales=0.08, theta_steps=3)
+    theta, path, (thetas, accs) = pg.run(torch.Generator(device=cuda).manual_seed(3), sv.sv_theta(1.0, -1.0, 0.0), ys, n_sweeps=200)
+    assert path.shape == (120,) and path.device.type == "cuda"
+    assert bool(torch.isfinite(thetas["phi"]).all())
+    assert 0.05 < float(accs.float().mean()) < 0.98
+    phis = np.tanh(thetas["phi"][80:].cpu().numpy())
+    assert abs(phis.mean() - 0.9) < 0.3, phis.mean()
