@@ -169,6 +169,20 @@ GMM_SYNC_SWEEPS = 5
 PG_SV = dict(n_particles=128, T=120, n_sweeps=20, theta_steps=3)
 BACKWARD_BYTES_PER_VALUE = 8
 GRAD_TOLERANCE = 1e-6  # per element, relative to max(1, |ref|)
+# The adaptive samplers' path (`phase_samplers`): N1 logistic-regression
+# NUTS at BASELINE config 4's width (`models/logreg.py::BenchConfig`,
+# `bench.py:714-750`), H1 eight schools under ChEES at `run_eight_schools`'s
+# defaults, H2 the other four algorithms of `sample_posterior` at the size
+# of `tests/inference/test_sample_api.py`, E1 `run_gp_ess` at its defaults
+# on the data of `tests/distributions/test_gp.py`, K1s Kalman and STS at
+# their tests' sizes against the CPU.
+NUTS_RUNS = 3
+NUTS_CPU_CHAINS = 1_024
+NUTS_INFO_DRAWS = 2
+SCHOOLS_SYNC_STEPS = 10
+SAMPLE_API = dict(n_chains=64, n_warmup=100, n_samples=200, thin_burn=50, L=5, max_depth=4)
+GP_BURN = 500
+KALMAN_TOLERANCE = 1e-4  # relative to the largest |value|, as the CPU parity tests hold it
 
 
 def check(ok: bool, what: str) -> None:
@@ -1953,6 +1967,231 @@ def phase_library(gx, ops, card: str, dev: str = "cuda") -> None:
     print(f"[{card}] library phase: {time.perf_counter() - t_phase:.1f} s in all")
 
 
+def relative_gap(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| over max(1, max |ref|), both on the CPU in float64."""
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def phase_samplers(gx, card: str, dev: str = "cuda") -> None:
+    """The adaptive samplers' path. N1: `run_nuts_chains` at C=8192, N=256,
+    D=16, eps=0.02, S=10, max_depth 6 (timed, peak memory) and once at
+    max_depth 8; the final `w` against the CPU plain path at 1024 chains
+    (5 combined SE), 0 syncs over S draws of `run_chains`, each chain's
+    accept statistic in [0, 1] and depth at most max_depth. H1:
+    `run_eight_schools` (ChEES, 64 chains, 300 warmup and 500 sampling
+    steps) against `eight_schools_quadrature` (6 SE + 0.05 with n_eff =
+    C S / 20 on mu, tau and every theta) with R-hat < 1.1 on every latent,
+    exactly 1 sync per ChEES step in the warmup and in the sampling. H2:
+    `sample_posterior` with hmc, mala, nuts and elliptical on the conjugate
+    model against its closed form. E1: `run_gp_ess` (2000 steps) against
+    `gp_posterior`'s mean and marginal variances within 5 MCSE (the port's
+    own ESS); its shrink trips and host reads per step. K1s: Kalman filter,
+    smoother and LML and STS lml, decompose, forecast and 40 fitting steps,
+    on the card against the CPU. N1 and H1 are profiled."""
+    import numpy as np
+
+    from genjax_tpu_torch import profiling
+    from genjax_tpu_torch.core.typing import per_particle
+    from genjax_tpu_torch.inference import chees, kalman
+    from genjax_tpu_torch.inference.diagnostics import effective_sample_size
+    from genjax_tpu_torch.inference.requests import elliptical, nuts
+    from genjax_tpu_torch.inference.sample import sample_posterior
+    from genjax_tpu_torch.models import gp, hierarchical, logreg, sts
+
+    t_phase = time.perf_counter()
+    rng = torch.Generator(device=dev).manual_seed(23)
+    profiles = dict(zip(("N1", "H1"), profiling.sampler_configurations(torch.Generator(device=dev).manual_seed(6), dev)))
+
+    # N1: logistic-regression NUTS at BASELINE config 4's width.
+    cfg = logreg.BenchConfig()
+    X, ys = cfg.data(dev)
+    X_cpu, ys_cpu = cfg.data("cpu")
+    md, md_deep = cfg.nuts_max_depth, cfg.nuts_deep_max_depth
+
+    def nuts_run(depth: int):
+        return logreg.run_nuts_chains(rng, X, ys, n_chains=cfg.n_chains, n_steps=cfg.n_steps, eps=cfg.eps, max_depth=depth)
+
+    nuts_run(md)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, results = timed_runs(lambda: nuts_run(md), NUTS_RUNS, warm=False)
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    deep_times, _ = timed_runs(lambda: nuts_run(md_deep), 1, warm=False)
+    w, accs = results[-1]
+    check(w.shape == (cfg.n_chains, cfg.dim) and accs.shape == (cfg.n_chains, cfg.n_steps), "N1 output shapes")
+    check(bool(torch.isfinite(w).all()) and bool(accs.all()), "N1: final w not finite, or a NUTS move not accepted")
+    w_cpu, _ = logreg.run_nuts_chains(
+        torch.Generator().manual_seed(24), X_cpu, ys_cpu, n_chains=NUTS_CPU_CHAINS, n_steps=cfg.n_steps, eps=cfg.eps,
+        max_depth=md,
+    )
+    dist = within_combined_se(w, w_cpu, "N1 final w, CUDA against the CPU plain path")
+    chains = logreg.init_chains(rng, X, ys, cfg.n_chains)
+    request = gx.NUTS(gx.Selection.at["w"], cfg.eps, max_depth=md)
+    syncs = count_syncs(lambda: gx.run_chains(rng, chains, request, cfg.n_steps))
+    check(syncs == 0, f"N1: run_chains made {syncs} device synchronisations over {cfg.n_steps} NUTS draws")
+    tr, depths, stats, divergent = chains, [], [], 0
+    for _ in range(NUTS_INFO_DRAWS):
+        tr, info = nuts.nuts_kernel(rng, tr, gx.Selection.at["w"], cfg.eps, md)
+        check(bool(((info.accept_stat >= 0.0) & (info.accept_stat <= 1.0)).all()), "N1: accept_stat outside [0, 1]")
+        check(bool(((info.depth >= 0) & (info.depth <= md)).all()), f"N1: a depth outside [0, {md}]")
+        depths.append(info.depth.float().mean().item())
+        stats.append(info.accept_stat.mean().item())
+        divergent += int(info.diverged.sum())
+    ms, deep_ms = statistics.median(times), deep_times[0]
+    draws = cfg.n_chains * cfg.n_steps
+    for depth, t in ((md, ms), (md_deep, deep_ms)):
+        print(f"[{card}] N1 NUTS C={cfg.n_chains} N={cfg.n_data} D={cfg.dim} eps={cfg.eps} S={cfg.n_steps} "
+              f"max_depth={depth}: {t:.1f} ms/run, {draws / (t * 1e-3):.4g} chain-steps/s, "
+              f"{draws * (2**depth - 1) / (t * 1e-3):.4g} gradient evaluations/s ({2**depth - 1} per draw)"
+              + (f" (median of {NUTS_RUNS}: {', '.join(f'{x:.1f}' for x in times)})" if depth == md else " (one run)"))
+    print(f"N1: final w within {dist:.2f} combined SE of the CPU plain path's ({NUTS_CPU_CHAINS} chains; limit 5); "
+          f"{syncs} device synchronisations over {cfg.n_steps} draws (0 per draw); peak device memory "
+          f"{peak_mib:.1f} MiB; over {NUTS_INFO_DRAWS} draws: mean accept_stat {statistics.fmean(stats):.4f}, "
+          f"mean depth {statistics.fmean(depths):.3f} of {md}, {divergent} divergent chain-draws")
+    print_profile(card, "N1 NUTS run", profiling.trace(profiles["N1"][2], profiles["N1"][1]))
+
+    # H1: eight schools under ChEES against the quadrature oracle.
+    y, sigma = hierarchical.EIGHT_SCHOOLS_Y.to(dev), hierarchical.EIGHT_SCHOOLS_SIGMA.to(dev)
+    oracle = hierarchical.eight_schools_quadrature(hierarchical.EIGHT_SCHOOLS_Y, hierarchical.EIGHT_SCHOOLS_SIGMA)
+    n_chains, n_warmup, n_samples = 64, 300, 500
+    leap0 = chees.chees_stats["leapfrog_total"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, theta = hierarchical.run_eight_schools(rng, y, sigma)
+    torch.cuda.synchronize()
+    h1_ms = 1e3 * (time.perf_counter() - t0)
+    leapfrogs = chees.chees_stats["leapfrog_total"] - leap0
+    check(theta.shape == (n_chains, n_samples, 8) and bool(torch.isfinite(theta).all()), "H1: theta draws")
+    mu, tau = out.samples["mu"].double().cpu(), torch.exp(out.samples["log_tau"].double().cpu())
+    n_eff = n_chains * n_samples / 20.0
+    report = []
+    for got, mean, var, label in ((mu.mean(), oracle.mu_mean, oracle.mu_var, "mu"),
+                                  (tau.mean(), oracle.tau_mean, oracle.tau_var, "tau")):
+        se = math.sqrt(float(var) / n_eff)
+        gap = abs(float(got) - float(mean))
+        check(gap < 6 * se + 0.05, f"H1 {label}: {float(got)} against the oracle's {float(mean)} (6 SE {6 * se})")
+        report.append(f"{label} {float(got):.3f} (oracle {float(mean):.3f}, bound {6 * se + 0.05:.3f})")
+    th_err = (theta.double().cpu().mean((0, 1)) - oracle.theta_mean.double()).abs()
+    th_bound = 6 * (oracle.theta_var.double() / n_eff).sqrt() + 0.05
+    check(bool((th_err < th_bound).all()), f"H1 theta means off: {th_err.tolist()} against {th_bound.tolist()}")
+    rhat = max(float(v.max()) for v in torch.utils._pytree.tree_leaves(out.rhat))
+    check(rhat < 1.1, f"H1: largest R-hat {rhat}")
+    traces, _ = hierarchical.eight_schools.importance(
+        rng, gx.ChoiceMap.kw(ys=y, log_tau=per_particle(4.0 * torch.rand(n_chains, generator=rng, device=dev) - 2.0)),
+        (sigma,), n=n_chains,
+    )
+    sel = ~gx.ChoiceMap.kw(ys=y).get_selection()
+    warm_syncs = count_syncs(lambda: chees.chees_warmup(rng, traces, sel, n_steps=SCHOOLS_SYNC_STEPS))
+    run_syncs = count_syncs(lambda: chees.run_chees_chains(rng, traces, sel, out.tuned, SCHOOLS_SYNC_STEPS))
+    check(warm_syncs == SCHOOLS_SYNC_STEPS and run_syncs == SCHOOLS_SYNC_STEPS,
+          f"H1: {warm_syncs} and {run_syncs} syncs over {SCHOOLS_SYNC_STEPS} ChEES warmup and sampling steps")
+    steps = n_warmup + n_samples
+    print(f"[{card}] H1 eight schools ChEES, {n_chains} chains, {n_warmup} warmup + {n_samples} sampling steps: "
+          f"{h1_ms:.1f} ms in all, {h1_ms / steps:.3f} ms per ChEES step (init and diagnostics included), "
+          f"{leapfrogs} leapfrog steps ({leapfrogs / steps:.2f} per ChEES step); adapted eps "
+          f"{float(out.tuned.eps):.4f}, T {float(out.tuned.trajectory_length):.4f}, accept rate "
+          f"{float(out.tuned.accept_rate):.3f}")
+    print(f"H1 against the quadrature oracle (6 SE + 0.05, n_eff = C S / 20): {'; '.join(report)}; every theta "
+          f"within its bound (largest gap {float(th_err.max()):.3f}); largest R-hat {rhat:.4f} (limit 1.1); "
+          f"syncs per ChEES step: {warm_syncs / SCHOOLS_SYNC_STEPS:.0f} in the warmup, "
+          f"{run_syncs / SCHOOLS_SYNC_STEPS:.0f} in the sampling (over {SCHOOLS_SYNC_STEPS} steps each)")
+    print_profile(card, "H1 ChEES sampling steps", profiling.trace(profiles["H1"][2], profiles["H1"][1]))
+
+    # H2: the other four algorithms on the conjugate model.
+    @gx.gen
+    def conjugate():
+        m = gx.normal(0.0, 1.0) @ "mu"
+        _ = gx.normal(m, 1.0) @ "obs"
+
+    kept = SAMPLE_API["n_samples"] - SAMPLE_API["thin_burn"]
+    for algorithm in ("hmc", "mala", "nuts", "elliptical"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sample_posterior(rng, conjugate, gx.ChoiceMap.kw(obs=1.0), algorithm=algorithm, **SAMPLE_API)
+        torch.cuda.synchronize()
+        a_ms = 1e3 * (time.perf_counter() - t0)
+        mus = res.samples["mu"].double().cpu()
+        check(mus.shape == (SAMPLE_API["n_chains"], kept), f"H2 {algorithm}: samples {tuple(mus.shape)}")
+        se = math.sqrt(0.5 / SAMPLE_API["n_chains"])
+        ok = (abs(float(mus.mean()) - 0.5) < 6 * se and abs(float(mus.var()) - 0.5) < 0.15
+              and float(res.rhat["mu"]) < 1.1 and float(res.ess["mu"]) > 200)
+        check(ok, f"H2 {algorithm}: mean {float(mus.mean())}, var {float(mus.var())}, R-hat {float(res.rhat['mu'])}, "
+                  f"ESS {float(res.ess['mu'])} against N(0.5, 0.5)")
+        print(f"[{card}] H2 sample_posterior({algorithm}) {SAMPLE_API['n_chains']} chains, {SAMPLE_API['n_warmup']} "
+              f"warmup + {SAMPLE_API['n_samples']} steps: {a_ms:.1f} ms; mean {float(mus.mean()):.4f} (exact 0.5, "
+              f"6 SE {6 * se:.3f}), var {float(mus.var()):.4f} (exact 0.5), R-hat {float(res.rhat['mu']):.4f}, "
+              f"ESS {float(res.ess['mu']):.1f}")
+
+    # E1: the latent GP under elliptical slice sampling.
+    data = np.random.default_rng(0)
+    xs_np = np.linspace(0.0, 3.0, 12).astype(np.float32)
+    ys_np = (np.sin(2 * xs_np) + 0.3 * data.standard_normal(12)).astype(np.float32)
+    xs, yv = torch.from_numpy(xs_np).to(dev), torch.from_numpy(ys_np).to(dev)
+    post_mean, post_cov, _ = gp.gp_posterior(xs, yv, 0.3)
+    before = dict(elliptical.elliptical_stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fs = gp.run_gp_ess(rng, xs, yv)
+    torch.cuda.synchronize()
+    e1_ms = 1e3 * (time.perf_counter() - t0)
+    moves = elliptical.elliptical_stats["moves"] - before["moves"]
+    trips = elliptical.elliptical_stats["trips"] - before["trips"]
+    reads = elliptical.elliptical_stats["syncs"] - before["syncs"]
+    s = fs[GP_BURN:].double().cpu()
+    mcse_mean = s.std(0) / effective_sample_size(s[None]).sqrt()
+    sq = (s - s.mean(0)) ** 2
+    mcse_var = sq.std(0) / effective_sample_size(sq[None]).sqrt()
+    z_mean = ((s.mean(0) - post_mean.double().cpu()).abs() / mcse_mean).max().item()
+    z_var = ((s.var(0) - post_cov.diagonal().double().cpu()).abs() / mcse_var).max().item()
+    check(fs.shape == (2000, 12) and z_mean < 5.0 and z_var < 5.0,
+          f"E1: the GP posterior mean {z_mean:.2f} and variance {z_var:.2f} MCSE from the closed form (limit 5)")
+    short = count_syncs(lambda: gp.run_gp_ess(rng, xs, yv, n_steps=50))
+    print(f"[{card}] E1 run_gp_ess (12 points, 2000 steps, one chain): {e1_ms:.1f} ms, {e1_ms / moves:.3f} ms per "
+          f"step; the posterior mean within {z_mean:.2f} MCSE and the marginal variances within {z_var:.2f} MCSE of "
+          f"the closed form (limit 5, MCSE from the port's ESS after {GP_BURN} burn-in steps); {trips / moves:.3f} "
+          f"shrink trips and {reads / moves:.3f} host reads of the loop per step; {short / 50:.2f} device "
+          "synchronisations per step in sync debug mode (50 steps)")
+
+    # K1s: Kalman and STS on the card against the CPU.
+    gaps = []
+    mats = np.random.default_rng(0)
+    A = torch.tensor([[0.9, 0.1, 0.0], [0.0, 0.8, 0.2], [0.1, 0.0, 0.7]])
+    Lq = 0.3 * torch.from_numpy(mats.standard_normal((3, 3)).astype(np.float32))
+    spec = dict(a=A, q=Lq @ Lq.T + 0.05 * torch.eye(3), h=torch.from_numpy(mats.standard_normal((2, 3)).astype(np.float32)),
+                r=torch.tensor([[0.3, 0.05], [0.05, 0.2]]), d=3, p=2, mu0=torch.tensor([0.5, -0.5, 0.0]), p0=1.2)
+    for build, p in ((dict(a=0.9, q=0.5, h=1.0, r=0.4, d=1), 1), (spec, 2)):
+        m_cpu = kalman.LinearGaussianSSM.build(**build, device="cpu")
+        m_dev = kalman.LinearGaussianSSM.build(**build)
+        check(m_dev.A.is_cuda and m_dev.P0.is_cuda, "K1s: LinearGaussianSSM.build made its matrices off the card")
+        obs = torch.from_numpy(np.random.default_rng(1).standard_normal((30, p)).astype(np.float32))
+        for got, ref in zip((*m_dev.filter(obs.to(dev)), *m_dev.smooth(obs.to(dev))), (*m_cpu.filter(obs), *m_cpu.smooth(obs))):
+            gaps.append(relative_gap(got, ref))
+    t = np.arange(40)
+    series = torch.from_numpy((0.05 * t + np.sin(np.pi * t / 2) + 0.3 * np.random.default_rng(3).standard_normal(40))
+                              .astype(np.float32))
+    sts_cpu, sts_dev = (
+        sts.StructuralTimeSeries((sts.local_linear_trend(0.1, 0.05, 5.0, device=d), sts.seasonal(4, 0.05, device=d),
+                                  sts.ar(0.7, 0.2, device=d)), obs_noise=0.3)
+        for d in ("cpu", "cuda")
+    )
+    check(all(c.A.is_cuda for c in sts_dev.components), "K1s: the STS components were made off the card")
+    gaps.append(relative_gap(sts_dev.lml(series.to(dev)), sts_cpu.lml(series)))
+    parts_dev, parts_cpu = sts_dev.decompose(series.to(dev)), sts_cpu.decompose(series)
+    gaps.extend(relative_gap(parts_dev[k], parts_cpu[k]) for k in parts_cpu)
+    gaps.extend(relative_gap(g, r) for g, r in zip(sts_dev.forecast(series.to(dev), 6), sts_cpu.forecast(series, 6)))
+    fit_dev, hist_dev = sts_dev.fit(series.to(dev), n_steps=40)
+    fit_cpu, hist_cpu = sts_cpu.fit(series, n_steps=40)
+    gaps.append(relative_gap(hist_dev, hist_cpu))
+    gaps.append(relative_gap(torch.as_tensor(fit_dev.obs_noise), torch.as_tensor(fit_cpu.obs_noise)))
+    check(max(gaps) < KALMAN_TOLERANCE, f"K1s: the card and the CPU differ by {max(gaps)} (limit {KALMAN_TOLERANCE})")
+    print(f"K1s Kalman (filter, smoother, LML; scalar and 3-state models, T=30) and STS (lml, decompose, forecast, "
+          f"40 fitting steps; T=40): card against CPU within {max(gaps):.2e} of the largest |value| "
+          f"(limit {KALMAN_TOLERANCE})")
+    print(f"[{card}] samplers phase: {time.perf_counter() - t_phase:.1f} s in all")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1961,6 +2200,7 @@ def main() -> None:
     from genjax_tpu_torch import ops
     from genjax_tpu_torch.ops import _build
 
+    t_smoke = time.perf_counter()
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
@@ -1990,6 +2230,9 @@ def main() -> None:
     vi_grad_err = []
     paths["vi"] = drive(lambda: vi_grad_err.append(phase_vi(gx, ops, card)))
     paths["library"] = drive(lambda: phase_library(gx, ops, card))
+    # No module of the samplers' path reduces a 1-D weight vector: it
+    # launches no K1, and its counts are read and reported, not required.
+    paths["samplers"] = drive(lambda: phase_samplers(gx, card))
     backward["grad_max_abs_err"] = max(backward["grad_max_abs_err"], *vi_grad_err)
     launches = {name: sum(p[name] for p in paths.values()) for name in ("logsumexp", "logsumexp_ess")}
     for name, count in paths["particle"].items():
@@ -2005,6 +2248,7 @@ def main() -> None:
     print("kernel launches on the main paths: " + ", ".join(
         f"{name} {count} (" + ", ".join(f"{path} path {p[name]}" for path, p in paths.items()) + ")"
         for name, count in launches.items()))
+    print(f"[{card}] smoke total wall: {time.perf_counter() - t_smoke:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": name,

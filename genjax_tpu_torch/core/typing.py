@@ -148,6 +148,14 @@ def plain(x: Any) -> Any:
         return x.as_subclass(torch.Tensor)
 
 
+def as_float(x: Any, device: torch.device | str | None = None) -> torch.Tensor:
+    """`x` as a floating tensor without its batch mark (on `device`, if
+    given): integer and boolean values take the default dtype."""
+    x = plain(x) if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+    x = x if x.is_floating_point() else x.to(torch.get_default_dtype())
+    return x if device is None else x.to(device)
+
+
 def batch_dims(n: "int | tuple | None") -> tuple:
     """The batch stack a method runs under, as a tuple of axis lengths:
     `None` is no batch axis, an int the particle axis alone, a tuple the

@@ -1061,12 +1061,22 @@ power_spherical = exact_density(
 # -- multivariate normal --------------------------------------------------------------
 
 
+def _cholesky(covariance_matrix):
+    """The lower Cholesky factor, with its status kept on the device:
+    `cholesky` reads it on the host to raise, a device synchronisation per
+    call on a CUDA tensor (an elliptical slice move scores this site on
+    every trip). A matrix that is not positive definite gives a factor of
+    NaN, as JAX's does, so its samples and densities are NaN."""
+    L, info = torch.linalg.cholesky_ex(covariance_matrix)
+    return torch.where((info == 0)[..., None, None], L, float("nan"))
+
+
 def _mv_normal_sample(rng, loc, covariance_matrix, n=None):
     # loc + L eps, L the Cholesky factor (shared or one per particle).
     loc = _f(loc, rng.device)
     d = loc.shape[-1]
     shape = _draw_shape(n, (loc, 1), (covariance_matrix, 2))
-    chol = torch.linalg.cholesky(covariance_matrix)
+    chol = _cholesky(covariance_matrix)
     eps = _normal(rng, (*shape, d))
     if chol.dim() == 2:  # one factor for every draw: one product
         return loc + eps @ chol.mT
@@ -1075,7 +1085,7 @@ def _mv_normal_sample(rng, loc, covariance_matrix, n=None):
 
 def _mv_normal_logpdf(v, loc, covariance_matrix):
     d = loc.shape[-1]
-    chol = torch.linalg.cholesky(covariance_matrix)
+    chol = _cholesky(covariance_matrix)
     diff = v - loc
     if chol.dim() == 2:
         # One factor: invert it once, then one product for every draw (a

@@ -1,0 +1,200 @@
+"""Exact inference for linear-Gaussian state-space models (Kalman).
+
+Counterpart of `genjax_tpu/inference/kalman.py`: `LinearGaussianSSM`
+(`build`, `filter`, `lml`, `smooth`, `sample`) and `kalman_predict_update`,
+for
+
+    z_0 ~ N(mu0, P0),   z_t = A z_{t-1} + N(0, Q),   y_t = H z_t + N(0, R),
+
+with y_0 observed at t = 0 (no predict step before the first update).
+The recursions are Python loops over time of small dense algebra; a step
+also takes a batch of states (`mu` `(..., d)`, `P` `(..., d, d)`), so a
+filter per particle is one call. `LinearGaussianSSM.build` makes the
+matrices on the CUDA card unless the caller passes `device="cpu"`; the
+recursions run where the matrices are.
+"""
+
+import math
+
+import torch
+
+from genjax_tpu_torch.core.pytree import Pytree
+from genjax_tpu_torch.core.typing import FloatArray, as_float
+from genjax_tpu_torch.distributions.library import _cholesky
+
+__all__ = ["LinearGaussianSSM", "kalman_predict_update"]
+
+
+def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """`M @ v` over batch axes: `(..., a, b) @ (..., b) -> (..., a)`."""
+    return (M @ v[..., None])[..., 0]
+
+
+def _predict_update_full(A, Q, H, R, mu, P, y, predict=True):
+    """Predict and update, returning the predicted moments too (the
+    smoother needs them): the one implementation of the Kalman algebra."""
+    if isinstance(predict, torch.Tensor):
+        mu_pred = torch.where(predict, _mv(A, mu), mu)
+        P_pred = torch.where(predict, A @ P @ A.mT + Q, P)
+    elif predict:
+        mu_pred, P_pred = _mv(A, mu), A @ P @ A.mT + Q
+    else:
+        mu_pred, P_pred = mu, P
+    S = H @ P_pred @ H.mT + R
+    resid = y - _mv(H, mu_pred)
+    chol = _cholesky(S)  # NaN where S is not positive definite, as in JAX; no host synchronisation
+    white = torch.linalg.solve_triangular(chol, resid[..., None], upper=False)[..., 0]
+    ll = (
+        -0.5 * (white**2).sum(-1)
+        - torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
+        - 0.5 * H.shape[-2] * math.log(2.0 * math.pi)
+    )
+    K = (P_pred @ torch.cholesky_solve(H, chol).mT)
+    mu_new = mu_pred + _mv(K, resid)
+    eye = torch.eye(P.shape[-1], dtype=P.dtype, device=P.device)
+    P_new = (eye - K @ H) @ P_pred
+    return mu_new, P_new, ll, mu_pred, P_pred
+
+
+def kalman_predict_update(A, Q, H, R, mu, P, y, predict=True):
+    """One Kalman step: (optionally) predict through (A, Q), then update on
+    `y` through (H, R). Returns `(mu', P', log p(y | past))`, the
+    innovation log-likelihood. `predict` is a bool or a boolean tensor.
+
+    >>> import torch
+    >>> from genjax_tpu_torch.inference.kalman import kalman_predict_update
+    >>> I = torch.eye(1)
+    >>> mu, P, ll = kalman_predict_update(I, I, I, I, torch.zeros(1), I, torch.ones(1))
+    >>> mu.tolist(), P.tolist()  # prior N(0, 2) after predict, then y = 1 with noise 1
+    ([0.6666666865348816], [[0.6666666269302368]])
+    """
+    mu_new, P_new, ll, _, _ = _predict_update_full(A, Q, H, R, mu, P, y, predict=predict)
+    return mu_new, P_new, ll
+
+
+def _at_least_2d(M, d: int, device) -> torch.Tensor:
+    M = as_float(M, device)
+    if M.dim() == 0:
+        return M * torch.eye(d, dtype=M.dtype, device=M.device)
+    if M.dim() == 1:
+        # A vector is per-dimension diagonal dynamics (as a vector, A @ mu
+        # would be an inner product).
+        return torch.diag(M)
+    return M
+
+
+def _noise_cov(v, n: int, device) -> torch.Tensor:
+    """A scalar or vector is per-dimension noise standard deviations; only
+    a matrix is taken as a covariance as it is."""
+    v = as_float(v, device)
+    if v.dim() == 0:
+        return v**2 * torch.eye(n, dtype=v.dtype, device=v.device)
+    if v.dim() == 1:
+        return torch.diag(v**2)
+    return v
+
+
+def _pinv_psd(M: torch.Tensor) -> torch.Tensor:
+    """The pseudo-inverse of a PSD matrix by `eigh`: null directions (from
+    a singular Q, as STS seasonal blocks have) get zero gain."""
+    s, U = torch.linalg.eigh(M)
+    cutoff = 1e-6 * s.max()
+    inv = torch.where(s > cutoff, 1.0 / torch.where(s > cutoff, s, 1.0), 0.0)
+    return (U * inv[None, :]) @ U.mT
+
+
+def psd_sqrt(M: torch.Tensor) -> torch.Tensor:
+    """A square-root factor `U sqrt(s)` of a PSD matrix by `eigh` (defined
+    where Cholesky is not: singular Q)."""
+    s, U = torch.linalg.eigh(M)
+    return U * torch.sqrt(torch.clamp(s, min=0.0))[None, :]
+
+
+@Pytree.dataclass
+class LinearGaussianSSM(Pytree):
+    """Model matrices: `A` (d,d) transition, `Q` (d,d) transition noise
+    covariance, `H` (p,d) emission, `R` (p,p) emission noise covariance,
+    `mu0` (d,) and `P0` (d,d) initial state.
+
+    >>> import torch
+    >>> from genjax_tpu_torch.inference.kalman import LinearGaussianSSM
+    >>> m = LinearGaussianSSM.build(a=0.9, q=0.5, h=1.0, r=0.4, d=1, device="cpu")
+    >>> mus, Ps, lml = m.filter(torch.tensor([[0.3], [1.0], [0.5]]))
+    >>> mus.shape, Ps.shape, bool(torch.isfinite(lml))
+    (torch.Size([3, 1]), torch.Size([3, 1, 1]), True)
+    """
+
+    A: FloatArray
+    Q: FloatArray
+    H: FloatArray
+    R: FloatArray
+    mu0: FloatArray
+    P0: FloatArray
+
+    @staticmethod
+    def build(a, q, h, r, d: int = 1, p: int | None = None, mu0=None, p0=1.0, device="cuda"):
+        """From scalars or matrices, on `device` (the CUDA card unless the
+        caller passes `"cpu"`); `q`, `r` and `p0` are noise STANDARD
+        DEVIATIONS when given as scalars or vectors."""
+        if p is None:
+            p = d
+        A = _at_least_2d(a, d, device)
+        Q = _noise_cov(q, d, device)
+        h = as_float(h, device)
+        H = h * torch.eye(p, d, dtype=h.dtype, device=device) if h.dim() == 0 else _at_least_2d(h, d, device)
+        R = _noise_cov(r, p, device)
+        mu0 = torch.zeros(d, dtype=A.dtype, device=device) if mu0 is None else as_float(mu0, device)
+        P0 = _noise_cov(p0, d, device)
+        return LinearGaussianSSM(A, Q, H, R, mu0, P0)
+
+    def _forward(self, ys: torch.Tensor):
+        mu, P = self.mu0, self.P0
+        out = []
+        for t in range(ys.shape[0]):
+            mu, P, ll, mu_pred, P_pred = _predict_update_full(
+                self.A, self.Q, self.H, self.R, mu, P, ys[t], predict=t != 0
+            )
+            out.append((mu, P, ll, mu_pred, P_pred))
+        return [torch.stack(xs) for xs in zip(*out)]
+
+    def filter(self, ys: FloatArray):
+        """Forward pass; returns `(filtered_means (T, d), filtered_covs
+        (T, d, d), log_marginal_likelihood)`. `ys` is (T, p)."""
+        mus, Ps, lls, _, _ = self._forward(ys)
+        return mus, Ps, lls.sum()
+
+    def lml(self, ys: FloatArray) -> FloatArray:
+        """Exact log p(y_{0:T-1})."""
+        return self.filter(ys)[2]
+
+    def smooth(self, ys: FloatArray):
+        """RTS smoothing; returns `(smoothed_means (T, d), smoothed_covs
+        (T, d, d))`. The gain uses the PSD pseudo-inverse of the predicted
+        covariance, not a solve: a model with deterministic state
+        directions makes it near-singular."""
+        mus, Ps, _, mu_preds, P_preds = self._forward(ys)
+        T = ys.shape[0]
+        mu_s, P_s = [None] * T, [None] * T
+        mu_s[-1], P_s[-1] = mus[-1], Ps[-1]
+        for t in range(T - 2, -1, -1):
+            C = Ps[t] @ self.A.mT @ _pinv_psd(P_preds[t + 1])
+            mu_s[t] = mus[t] + C @ (mu_s[t + 1] - mu_preds[t + 1])
+            P_s[t] = Ps[t] + C @ (P_s[t + 1] - P_preds[t + 1]) @ C.mT
+        return torch.stack(mu_s), torch.stack(P_s)
+
+    def sample(self, rng: torch.Generator, T: int):
+        """Simulate `(latents (T, d), observations (T, p))` on the
+        generator's device. Noise factors use an eigendecomposition square
+        root (`psd_sqrt`), defined for a singular Q."""
+        dev = rng.device
+        A, H = self.A.to(dev), self.H.to(dev)
+        d, p = A.shape[0], H.shape[0]
+        cholQ, cholR = psd_sqrt(self.Q).to(dev), psd_sqrt(self.R).to(dev)
+        z = self.mu0.to(dev) + psd_sqrt(self.P0).to(dev) @ torch.randn(d, generator=rng, device=dev)
+        zs, ys = [], []
+        for _ in range(T):
+            y = H @ z + cholR @ torch.randn(p, generator=rng, device=dev)
+            zs.append(z)
+            ys.append(y)
+            z = A @ z + cholQ @ torch.randn(d, generator=rng, device=dev)
+        return torch.stack(zs), torch.stack(ys)

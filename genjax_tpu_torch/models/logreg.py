@@ -1,4 +1,5 @@
-"""Bayesian logistic regression: HMC and MALA over thousands of chains.
+"""Bayesian logistic regression: HMC, MALA and NUTS over thousands of
+chains.
 
 Counterpart of `genjax_tpu/models/logreg.py`. JAX writes one chain's
 `X @ w` and lets `vmap` batch it; here the body runs once on the chain
@@ -14,7 +15,7 @@ import torch
 from genjax_tpu_torch.core.choice_map import ChoiceMap, Selection
 from genjax_tpu_torch.distributions.library import bernoulli, mv_normal_diag
 from genjax_tpu_torch.inference.mcmc import run_chains, share_chain_args
-from genjax_tpu_torch.inference.requests import HMC, MALA
+from genjax_tpu_torch.inference.requests import HMC, MALA, NUTS
 from genjax_tpu_torch.lang.static import gen
 
 
@@ -64,9 +65,10 @@ def simulate_logreg_data(rng: torch.Generator, n: int, d: int):
 
 @dataclasses.dataclass(frozen=True)
 class BenchConfig:
-    """HMC as `bench.py:605-644` runs it (BASELINE config 4), and MALA at
-    the same width: the configuration of `chip_smoke.py` and
-    `profiling.py`."""
+    """HMC as `bench.py:605-644` runs it (BASELINE config 4), and MALA and
+    NUTS at the same width (NUTS as `bench.py:714-750` runs it, at
+    `nuts_max_depth` and once at `nuts_deep_max_depth`): the configuration
+    of `chip_smoke.py` and `profiling.py`."""
 
     n_chains: int = 8192
     n_data: int = 256
@@ -75,6 +77,8 @@ class BenchConfig:
     L: int = 5
     n_steps: int = 10
     mala_eps: float = 0.01
+    nuts_max_depth: int = 6
+    nuts_deep_max_depth: int = 8
     data_seed: int = 3
 
     def data(self, device: torch.device | str):
@@ -109,4 +113,16 @@ def run_mala_chains(rng: torch.Generator, X, ys, n_chains: int = 8192, n_steps: 
     """MALA over `n_chains` chains: returns (final `w`, accept flags)."""
     trs = init_chains(rng, X, ys, n_chains)
     finals, accs = run_chains(rng, trs, MALA(Selection.at["w"], eps), n_steps)
+    return finals.get_choices()["w"], accs
+
+
+def run_nuts_chains(
+    rng: torch.Generator, X, ys, n_chains: int = 8192, n_steps: int = 100, eps: float = 0.05, max_depth: int = 6
+):
+    """NUTS over `n_chains` chains: returns (final `w`, `(C, n_steps)`
+    accept flags, all true: NUTS's weight is 0). Each draw costs
+    `2**max_depth - 1` gradient passes over the batch (the fixed schedule
+    of `inference/requests/nuts.py`), and no step reads the device."""
+    trs = init_chains(rng, X, ys, n_chains)
+    finals, accs = run_chains(rng, trs, NUTS(Selection.at["w"], eps, max_depth=max_depth), n_steps)
     return finals.get_choices()["w"], accs

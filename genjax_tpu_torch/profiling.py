@@ -1,5 +1,5 @@
 """Where the time goes on the particle, MCMC, combinator, branching, SMC,
-VI and library paths, on one CUDA card.
+VI, library and adaptive samplers' paths, on one CUDA card.
 
 Traces each configuration that `chip_smoke.py` runs with `torch.profiler`
 (CUPTI device intervals) and prints, for each:
@@ -17,7 +17,9 @@ Traces each configuration that `chip_smoke.py` runs with `torch.profiler`
   MH step, jump sweep or Gibbs sweep on the branching path, per filter
   step or `extend` on the SMC path, per round for the dense SMC round,
   per estimate or gradient on the VI path, per Gibbs sweep (G1) or filter
-  step (SV1) on the library path), and the largest device items;
+  step (SV1) on the library path, per leapfrog step (a NUTS leaf, N1; a
+  ChEES leapfrog step, H1) on the samplers' path), and the largest device
+  items;
 - K1: the device kernels of the logsumexp kernel in the trace beside the
   launches its wrappers counted in the same run (one kernel per launch),
   and how many device items come from `torch.softmax`.
@@ -223,6 +225,53 @@ def library_configurations(rng: torch.Generator, dev: str = "cuda") -> list:
     ]
 
 
+H1_PROFILE_STEPS = 20  # ChEES sampling steps of one profiled H1 run
+
+
+def sampler_configurations(rng: torch.Generator, dev: str = "cuda") -> list:
+    """(label, steps, fn) of the adaptive samplers' configurations: N1 one
+    logistic-regression NUTS run at BASELINE config 4's width
+    (`models/logreg.py::BenchConfig`: C=8192, S=10 draws at max_depth 6;
+    the steps are leapfrog steps, `S * (2**6 - 1)` leaves), and H1
+    `H1_PROFILE_STEPS` ChEES sampling steps on eight schools at
+    `run_eight_schools`'s width (64 chains) after its 300-step warmup,
+    from a generator seeded afresh in each run, so every run takes the
+    same leapfrog counts (the steps are those leapfrog steps)."""
+    from genjax_tpu_torch.core.choice_map import ChoiceMap
+    from genjax_tpu_torch.core.typing import per_particle
+    from genjax_tpu_torch.inference import chees
+    from genjax_tpu_torch.models import hierarchical, logreg
+
+    cfg = logreg.BenchConfig()
+    X, ys = cfg.data(dev)
+    md = cfg.nuts_max_depth
+    y, sigma = hierarchical.EIGHT_SCHOOLS_Y.to(dev), hierarchical.EIGHT_SCHOOLS_SIGMA.to(dev)
+    n_chains = 64
+    start = ChoiceMap.kw(ys=y, log_tau=per_particle(4.0 * torch.rand(n_chains, generator=rng, device=dev) - 2.0))
+    traces, _ = hierarchical.eight_schools.importance(rng, start, (sigma,), n=n_chains)
+    sel = ~ChoiceMap.kw(ys=y).get_selection()
+    warmed, tuned = chees.chees_warmup(rng, traces, sel, n_steps=300)
+    fixed = torch.Generator(device=dev)
+
+    def chees_steps():
+        fixed.manual_seed(7)
+        return chees.run_chees_chains(fixed, warmed, sel, tuned, H1_PROFILE_STEPS)
+
+    before = chees.chees_stats["leapfrog_total"]
+    chees_steps()
+    leapfrogs = chees.chees_stats["leapfrog_total"] - before
+    return [
+        (f"N1 logreg NUTS C={cfg.n_chains} N={cfg.n_data} D={cfg.dim} eps={cfg.eps} S={cfg.n_steps} "
+         f"max_depth={md}, one run (chain init, S draws); steps are leapfrog steps (leaves)",
+         cfg.n_steps * (2**md - 1),
+         lambda: logreg.run_nuts_chains(rng, X, ys, n_chains=cfg.n_chains, n_steps=cfg.n_steps, eps=cfg.eps,
+                                        max_depth=md)),
+        (f"H1 eight schools ChEES, {n_chains} chains, {H1_PROFILE_STEPS} sampling steps after the 300-step "
+         f"warmup ({leapfrogs} leapfrog steps); steps are leapfrog steps",
+         leapfrogs, chees_steps),
+    ]
+
+
 def configurations():
     """(label, steps, fn) of each configuration, on the card."""
     import genjax_tpu_torch as gx
@@ -301,6 +350,7 @@ def configurations():
         *smc_configurations(rng),
         *vi_configurations(rng),
         *library_configurations(rng),
+        *sampler_configurations(rng),
     ]
 
 

@@ -7,7 +7,10 @@ particle Gibbs, FFBS and tempered SMC), every leaf on the card and K1
 counted; and K1's gradient (the kernel forward, `g * exp(x - lse)`
 backward, against `torch.logsumexp`'s) with the VI path on the card; and
 the library path: every distribution at a million draws, the rejection
-samplers, the Dirichlet mixture and stochastic volatility.
+samplers, the Dirichlet mixture and stochastic volatility; and the
+adaptive samplers: NUTS with no synchronisation at 8192 chains, ChEES with
+exactly one per step, the elliptical slice loop's host reads against its
+trips, each held against the CPU.
 
 These tests need a CUDA device (the kernel has no CPU mode) and skip
 without one. On a machine with the card and without JAX, run them with
@@ -872,3 +875,97 @@ def test_particle_gibbs_on_sv_on_the_card(cuda):
     assert 0.05 < float(accs.float().mean()) < 0.98
     phis = np.tanh(thetas["phi"][80:].cpu().numpy())
     assert abs(phis.mean() - 0.9) < 0.3, phis.mean()
+
+
+def _count_syncs(fn) -> tuple[int, object]:
+    """(device synchronisations PyTorch's sync debug mode reports while
+    `fn` runs, its result)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught), out
+
+
+def _within_combined_se(a: torch.Tensor, b: torch.Tensor, n_se: float = 5.0) -> None:
+    a, b = a.double().cpu().reshape(a.shape[0], -1), b.double().cpu().reshape(b.shape[0], -1)
+    se = (a.var(0) / a.shape[0] + b.var(0) / b.shape[0]).sqrt()
+    assert bool(((a.mean(0) - b.mean(0)).abs() < n_se * se).all()), (a.mean(0), b.mean(0), se)
+
+
+def test_nuts_makes_no_sync_at_8192_chains_and_matches_the_cpu(cuda):
+    # Two NUTS draws at max_depth 6 over 8192 logistic-regression chains:
+    # 0 synchronisations, and the final w against 1024 chains on the CPU.
+    import genjax_tpu_torch as gx
+
+    request = gx.NUTS(gx.Selection.at["w"], 0.02, max_depth=6)
+    rng, chains = _logreg_chains(cuda, 8192)
+    gx.run_chains(rng, chains, request, 1)  # warm up
+    syncs, (final, accepted) = _count_syncs(lambda: gx.run_chains(rng, chains, request, 2))
+    assert syncs == 0 and bool(accepted.all())
+    cpu_rng, cpu_chains = _logreg_chains(torch.device("cpu"), 1024, seed=5)
+    cpu_final, _ = gx.run_chains(cpu_rng, cpu_chains, request, 2)
+    _within_combined_se(final.get_choices()["w"], cpu_final.get_choices()["w"])
+
+
+def test_chees_makes_one_sync_per_step_and_matches_the_cpu(cuda):
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.inference import chees
+    from genjax_tpu_torch.inference.sample import sample_posterior
+    from genjax_tpu_torch.models import hierarchical
+
+    y, sigma = hierarchical.EIGHT_SCHOOLS_Y.to(cuda), hierarchical.EIGHT_SCHOOLS_SIGMA.to(cuda)
+    rng = torch.Generator(device=cuda).manual_seed(0)
+    traces, _ = hierarchical.eight_schools.importance(rng, gx.ChoiceMap.kw(ys=y), (sigma,), n=64)
+    sel = ~gx.ChoiceMap.kw(ys=y).get_selection()
+    syncs, (warmed, tuned) = _count_syncs(lambda: chees.chees_warmup(rng, traces, sel, n_steps=12))
+    assert syncs == 12
+    syncs, _ = _count_syncs(lambda: chees.run_chees_chains(rng, warmed, sel, tuned, 8))
+    assert syncs == 8
+
+    @gx.gen
+    def conjugate():
+        mu = gx.normal(0.0, 1.0) @ "mu"
+        _ = gx.normal(mu, 1.0) @ "obs"
+
+    draws = []
+    for device in (cuda, torch.device("cpu")):
+        out = sample_posterior(torch.Generator(device=device).manual_seed(1), conjugate, gx.ChoiceMap.kw(obs=1.0),
+                               n_chains=256, n_warmup=60, n_samples=40)
+        draws.append(out.samples["mu"][:, -1])
+    _within_combined_se(*draws)
+
+
+def test_elliptical_loop_reads_match_its_trips_and_the_cpu(cuda):
+    # A scalar normal model (no Cholesky): the loop's host reads are the
+    # move's only synchronisations, one every ELLIPTICAL_CHECK_EVERY trips.
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.inference.requests import elliptical
+
+    @gx.gen
+    def model():
+        mu = gx.normal(1.0, 2.0) @ "mu"
+        _ = gx.normal(mu, 1.0) @ "obs"
+
+    req = gx.EllipticalSlice(gx.Selection.at["mu"], mean=1.0)
+    finals = []
+    for device in (cuda, torch.device("cpu")):
+        rng = torch.Generator(device=device).manual_seed(2)
+        tr, _ = model.importance(rng, gx.ChoiceMap.kw(obs=3.0), (), n=2048)
+        for _ in range(6):
+            if device.type == "cuda":
+                before = dict(elliptical.elliptical_stats)
+                syncs, (tr, _) = _count_syncs(lambda: gx.mh(rng, tr, req))
+                moved = {k: v - before[k] for k, v in elliptical.elliptical_stats.items()}
+                assert moved["moves"] == 1 and moved["capped"] == 0 and syncs == moved["syncs"]
+                assert moved["syncs"] == moved["trips"] // elliptical.ELLIPTICAL_CHECK_EVERY + 1
+            else:
+                tr, _ = gx.mh(rng, tr, req)
+        finals.append(tr.get_choices()["mu"])
+    _within_combined_se(*finals)

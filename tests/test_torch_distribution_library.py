@@ -177,6 +177,21 @@ def test_mv_normal_logpdf_matches_jax_with_a_shared_and_per_particle_covariance(
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)  # sixteen float32 Cholesky factors
 
 
+def test_mv_normal_with_a_covariance_that_is_not_positive_definite_is_nan_as_in_jax():
+    # One positive-definite and one indefinite (eigenvalues 3 and -1)
+    # covariance: JAX's Cholesky factor of the second is NaN, and so are
+    # the density and the draws the port makes with it.
+    covs = f32([[[2.0, 0.5], [0.5, 1.0]], [[1.0, 2.0], [2.0, 1.0]]])
+    loc, vs = f32([0.5, -1.0]), f32([[0.3, 0.1], [-0.2, 0.4]])
+    ref = np.asarray(jax.vmap(lambda v, c: J.mv_normal.logpdf(v, jnp.asarray(loc), c))(jnp.asarray(vs), jnp.asarray(covs)))
+    got = T.mv_normal.logpdf(torch.from_numpy(vs), torch.from_numpy(loc), torch.from_numpy(covs)).numpy()
+    assert np.isfinite(ref[0]) and np.isnan(ref[1])
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)  # NaN where JAX's is NaN
+    draws = T.mv_normal.sample(torch.Generator().manual_seed(0), torch.from_numpy(loc), torch.from_numpy(covs[1]))
+    assert draws.shape == (2,) and bool(torch.isnan(draws).all())
+    assert bool(torch.isnan(T.mv_normal.logpdf(torch.from_numpy(vs[0]), torch.from_numpy(loc), torch.from_numpy(covs[1]))))
+
+
 _COUNT_VECTORS = f32([[2, 3, 5], [0, 0, 10], [10, 0, 0], [-1, 6, 5], [2, 2, 2], [4, 4, 2], [11, 0, -1]])
 
 
