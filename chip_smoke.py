@@ -40,7 +40,7 @@ profiled. Then the SMC path (`phase_smc`): S1 BASELINE config 3, the
 resamplers, its LML over 20 runs against the forward algorithm, one
 `logsumexp_ess` launch and one synchronisation per step; S2 the same HMM
 as a `scan` program under `SMCDriver` (extend, resample, rejuvenate),
-its LML over 10 runs against the forward algorithm; S3 the dense SMC
+its LML over 5 runs against the forward algorithm; S3 the dense SMC
 round of `bench.py:477-531` at K=1,000,000 (LML, posterior mean and the
 resampled ESS against their closed forms, 1 `logsumexp` and 2
 `logsumexp_ess` launches per round); K1 held against its plain twin on
@@ -68,7 +68,20 @@ counts adding to N, 0 synchronisations per sweep, time, peak memory);
 stochastic volatility at K=1024, T=200: 20 filters against the CPU plain
 path with one `logsumexp_ess` launch per step and K1 held against its
 plain twin on the steps' own weights, 100 PMMH steps, and particle Gibbs
-at its JAX test's size. Every phase raises on failure; nothing is
+at its JAX test's size. Then the adaptive samplers' path
+(`phase_samplers`: NUTS, ChEES, `sample_posterior`, elliptical slice,
+Kalman and STS). Then the last six algorithms (`phase_algorithms`): SVGD
+on logistic regression at `bench.py`'s width (4096 particles; 2000 steps
+in f32 and bf16, 500 at D=128 and packed 8 x D=16), timed beside its TFLOP count
+and traffic bound, with 0 syncs, every score equal to a fresh `assess`,
+the Stein direction against float64 on the CPU and the conjugate model
+against its closed form; SMC² at 1024 x 1024 and the Rao-Blackwellized
+filter at K=1,000,000 against their Kalman oracles and the CPU, with one
+sync and one `logsumexp_ess` launch per step and K1 held against its
+plain twin on their own weights; ABC-SMC at 1,000,000 particles (one K1
+launch per generation) and rejection ABC against the conjugate posterior;
+involutive MH at 8192 chains and the five-replica tempering ladder, 0
+syncs per step or sweep. Every phase raises on failure; nothing is
 caught.
 
 Run from the repository root, with one CUDA card visible:
@@ -146,7 +159,7 @@ BRANCH_RUNS = 3
 # drivers at their JAX tests' configurations.
 RESAMPLING = ("systematic", "multinomial", "stratified", "residual")
 SMC_FILTER_RUNS = 20
-SMC_DRIVER_RUNS = 10
+SMC_DRIVER_RUNS = 5  # cut from 10: the whole smoke passed 600 s on a slow host (PERF.md §4)
 LG_Q, LG_R, LG_A = 0.5, 0.4, 0.8  # the linear-Gaussian SSM of the PMMH, PG and FFBS tests
 # The VI path (`models/ravi.py::BenchConfig`, BASELINE config 5 at the width
 # of `bench.py::_ravi`): ELBO gradients held at the origin, IWELBO
@@ -183,6 +196,30 @@ SCHOOLS_SYNC_STEPS = 10
 SAMPLE_API = dict(n_chains=64, n_warmup=100, n_samples=200, thin_burn=50, L=5, max_depth=4)
 GP_BURN = 500
 KALMAN_TOLERANCE = 1e-4  # relative to the largest |value|, as the CPU parity tests hold it
+# The last six inference algorithms (`phase_algorithms`): SV1-SV4 SVGD at
+# the width of `bench.py:766-768` (logistic regression, 256 data points,
+# 4096 particles, step 0.05; SV3 D=128 at `bench.py:836-856`, SV4 the
+# packed 8 x D=16 of `bench.py:883-910`), M1 SMC² at 1024 x 1024 on the
+# AR(1) of `tests/inference/test_smc2.py`, R1 the RBPF at K=1M on the
+# switching model of `tests/inference/test_rbpf.py`, A1 ABC-SMC at 1M
+# particles on the conjugate model of `tests/inference/test_abc.py`, I1
+# involutive MH at 8192 chains (the scaling move of
+# `tests/inference/test_involutive.py`), T1 the bimodal ladder of
+# `tests/inference/test_parallel_tempering.py:154-188`.
+SVGD_CFG = dict(n_particles=4_096, n_data=256, dim=16, wide_dim=128, n_steps=2_000, wide_steps=500, packed_problems=8,
+                packed_steps=500, step_size=0.05, cpu_particles=1_024, sync_steps=5, conjugate_steps=400)
+SVGD_PEAK_OPS = {"f32": 67e12, "bf16": 989e12}  # H100 SXM: f32 without tensor cores; bf16 dense tensor cores
+SVGD_SEEDS = {"SV1": 50, "SV2": 50, "SV3": 51, "SV4": 52}  # the timed runs' generators: SV1 and SV2 share one
+SVGD_BF16_MEAN_TOLERANCE = 1.0  # SV2's final means from SV1's, in SV1's standard errors of the mean
+STEIN_F32_TOLERANCE = 1e-4  # of max |phi|, against float64 on the CPU
+STEIN_BF16_TOLERANCE = 5e-2  # of max |phi|; bf16 operands, f32 accumulation
+K3_CALLS = 10  # queued behind `device_and_host`'s 25 ms sleep: their enqueueing (about 1.5 ms each) must fit in it
+SMC2_CFG = dict(n_theta=1_024, n_x=1_024, T=25, small=256, seed=3)
+RBPF_CFG = dict(n_particles=1_000_000, T=50, runs=10, cpu_particles=4_096, data_seed=2)
+RB_A_X, RB_Q_X, RB_R0, RB_A_Z, RB_Q_Z = 0.9, 0.5, 0.4, 0.9, 0.3  # `tests/inference/test_rbpf.py`
+ABC_CFG = dict(n_particles=1_000_000, n_generations=8, n_moves=5, runs=5, rejection_tolerance=0.1)
+INVOLUTIVE_CFG = dict(n_chains=8_192, n_steps=300, sync_steps=10)
+PT_CFG = dict(n_sweeps=4_000, burn=500, sync_sweeps=10)
 
 
 def check(ok: bool, what: str) -> None:
@@ -1130,6 +1167,7 @@ def print_profile(card: str, label: str, prof: dict) -> None:
     print(f"[{card}] {label} profile: wall {prof['wall_ms']:.3f} ms, device busy {prof['device_busy_ms']:.3f} ms, "
           f"idle {100 * prof['idle_share']:.1f}%, {prof['device_items_per_step']:.1f} device items and "
           f"{prof['launch_calls_per_step']:.1f} launch calls per step, peak device memory {prof['peak_mib']:.1f} MiB; "
+          f"K1: {prof['k1_device_kernels']} device kernels for {prof['k1_launches']} launches; "
           "largest: " + "; ".join(f"{i['name'][:60]} x{i['count']} {i['ms']:.2f} ms" for i in prof["largest"]))
 
 
@@ -2192,6 +2230,537 @@ def phase_samplers(gx, card: str, dev: str = "cuda") -> None:
     print(f"[{card}] samplers phase: {time.perf_counter() - t_phase:.1f} s in all")
 
 
+def algorithm_models(gx, dev: str):
+    """The models of `phase_algorithms` (and of `profiling.py`'s
+    configurations of the same paths), as their JAX tests define them,
+    with the RBPF's constant matrices made on `dev` once."""
+    import types
+
+    from genjax_tpu_torch.inference.kalman import LinearGaussianSSM
+
+    m = types.SimpleNamespace()
+
+    @gx.gen
+    def scalar():
+        mu = gx.normal(0.0, 1.0) @ "mu"
+        _ = gx.normal(mu, 1.0) @ "obs"
+
+    @gx.gen
+    def abc_model():
+        t = gx.normal(0.0, 1.0) @ "theta"
+        _ = gx.normal(t, 0.5) @ "y"
+
+    @gx.gen
+    def lognormal():
+        x = gx.log_normal(0.0, 1.0) @ "x"
+        _ = gx.normal(torch.log(x), 1.0) @ "y"
+
+    @gx.gen
+    def aux_scale():
+        _ = gx.normal(0.0, 0.6) @ "u"
+
+    def scale_move(x_chm, u_chm):
+        # (x, u) -> (x e^u, -u): an involution with |det| = e^u
+        return (torch.utils._pytree.tree_map(lambda x: x * torch.exp(u_chm["u"]), x_chm),
+                torch.utils._pytree.tree_map(lambda u: -u, u_chm))
+
+    @gx.gen
+    def bimodal():
+        mu = gx.normal(0.0, 2.0) @ "mu"
+        _ = gx.normal(mu * mu, 0.3) @ "y"
+
+    @gx.gen
+    def z_init():
+        return gx.normal(0.0, 1.0) @ "z"
+
+    @gx.gen
+    def z_step(z_prev, t):
+        return gx.normal(RB_A_Z * z_prev, RB_Q_Z) @ "z"
+
+    base = LinearGaussianSSM.build(a=RB_A_X, q=RB_Q_X, h=1.0, r=RB_R0, d=1, device=dev)
+
+    def lgss_of_z(z):
+        """Observation noise scaled by the regime: R(z) = (R0 e^{z/2})^2."""
+        r = RB_R0 * torch.exp(0.5 * z)
+        return LinearGaussianSSM(base.A, base.Q, base.H, (r * r).reshape(1, 1), base.mu0, base.P0)
+
+    m.scalar, m.abc_model, m.lognormal, m.aux_scale, m.scale_move, m.bimodal = (
+        scalar, abc_model, lognormal, aux_scale, scale_move, bimodal)
+    m.z_init, m.z_step, m.lgss_of_z, m.linear = z_init, z_step, lgss_of_z, base
+    m.lg_init, m.lg_step = lg_models(gx)
+    return m
+
+
+def rbpf_data(T: int, seed: int) -> list[float]:
+    """Observations of the switching model, simulated jointly (z and x) in
+    numpy float64."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    z, x, ys = rng.standard_normal(), rng.standard_normal(), []
+    for t in range(T):
+        if t:
+            z = RB_A_Z * z + RB_Q_Z * rng.standard_normal()
+            x = RB_A_X * x + RB_Q_X * rng.standard_normal()
+        ys.append(float(x + RB_R0 * math.exp(0.5 * z) * rng.standard_normal()))
+    return ys
+
+
+def scalar_kalman_lml(a: float, q: float, r: float, ys) -> float:
+    """log p(y) of x_0 ~ N(0, 1), x_t = a x_{t-1} + N(0, q^2), y_t = x_t +
+    N(0, r^2), in float64."""
+    mu, p, ll = 0.0, 1.0, 0.0
+    for t, y in enumerate(ys):
+        if t:
+            mu, p = a * mu, a * a * p + q * q
+        s = p + r * r
+        ll += -0.5 * (math.log(2 * math.pi * s) + (y - mu) ** 2 / s)
+        k = p / s
+        mu, p = mu + k * (y - mu), (1 - k) * p
+    return ll
+
+
+def smc2_oracle(ys, lo: float = -1.5, hi: float = 1.5, n: int = 301) -> tuple[float, float]:
+    """`tests/inference/test_smc2.py::_exact`: the posterior mean of `a`
+    and the evidence by quadrature over the Kalman marginal on a grid,
+    under a N(0, 1) prior, in float64."""
+    grid = [lo + (hi - lo) * i / (n - 1) for i in range(n)]
+    lp = [lg_kalman(a, ys)[0] - 0.5 * a * a - 0.5 * math.log(2 * math.pi) for a in grid]
+    top = max(lp)
+    w = [math.exp(v - top) for v in lp]
+    return (sum(a * wi for a, wi in zip(grid, w)) / sum(w),
+            top + math.log(sum(w)) + math.log((hi - lo) / (n - 1)))
+
+
+def recording(module, name: str, seen: list):
+    """Wrap `module.name` (a K1 entry point as a module imported it) so
+    every input it reduces is kept in `seen`; returns the original."""
+    original = getattr(module, name)
+
+    def wrapped(x):
+        seen.append(x)
+        return original(x)
+
+    setattr(module, name, wrapped)
+    return original
+
+
+def svgd_flops(n: int, d: int, n_data: int, problems: int = 1) -> int:
+    """`bench.py:791-795`'s matmul operations per SVGD step: the distance
+    product, the fused `[grads | x | 1]` contraction and about three passes
+    of the density gradient's `(N, D) x (D, N_data)` product per problem."""
+    cd = problems * d
+    return 2 * n * n * cd + 2 * n * n * (2 * cd + 1) + problems * 3 * 2 * n * d * n_data
+
+
+def svgd_logreg(gx, rng: torch.Generator, problems: list, kernel_dtype, n_particles: int, n_steps: int,
+                step_size: float):
+    """SVGD on logistic regression: `svgd` for one problem `(X, ys)`,
+    `packed_svgd` for several. Returns (the traces, one batch per problem;
+    the per-step mean |phi|)."""
+    from genjax_tpu_torch.inference import svgd as sv
+    from genjax_tpu_torch.models.logreg import logistic_regression
+
+    kw = dict(n_particles=n_particles, n_steps=n_steps, step_size=step_size, kernel_dtype=kernel_dtype)
+    if len(problems) == 1:
+        (X, ys), = problems
+        traces, phi = sv.svgd(rng, logistic_regression, (X,), gx.ChoiceMap.kw(ys=ys), gx.Selection.at["w"], **kw)
+        return [traces], phi
+    return sv.packed_svgd(rng, logistic_regression, [(X,) for X, _ in problems],
+                          [gx.ChoiceMap.kw(ys=ys) for _, ys in problems], gx.Selection.at["w"], **kw)
+
+
+def svgd_cpu_reference(problems: list, kind: str, n_particles: int, n_steps: int, step_size: float, seed: int):
+    """An SVGD configuration (`svgd_logreg`; `problems` as numpy arrays) on
+    the CPU plain path, for a worker process: each problem's final
+    particles `w`, as numpy arrays. The worker takes six of the host's
+    threads while the parent drives the card."""
+    import genjax_tpu_torch as gx
+
+    torch.set_num_threads(6)
+    traces, _ = svgd_logreg(gx, torch.Generator().manual_seed(seed),
+                            [(torch.from_numpy(X), torch.from_numpy(ys)) for X, ys in problems],
+                            torch.bfloat16 if kind == "bf16" else None, n_particles, n_steps, step_size)
+    return [tr.get_choices()["w"].numpy() for tr in traces]
+
+
+def phase_algorithms(gx, ops, card: str, dev: str = "cuda") -> None:
+    """The last six inference algorithms on the card (see the constants
+    above). Every check raises; nothing is caught."""
+    import numpy as np
+
+    from genjax_tpu_torch import profiling
+    from genjax_tpu_torch.inference import rbpf as rbpf_module
+    from genjax_tpu_torch.inference import smc2 as smc2_module
+    from genjax_tpu_torch.inference import svgd as sv
+    from genjax_tpu_torch.inference.abc import ABCSMC, abc_rejection
+    from genjax_tpu_torch.inference.involutive import involutive_mh, involutive_step
+    from genjax_tpu_torch.inference.parallel_tempering import ParallelTempering
+    from genjax_tpu_torch.inference.rbpf import RaoBlackwellFilter
+    from genjax_tpu_torch.inference.requests import GaussianDrift
+    from genjax_tpu_torch.inference.smc2 import SMC2
+    from genjax_tpu_torch.models.logreg import logistic_regression, simulate_logreg_data
+
+    import multiprocessing
+
+    t_phase = time.perf_counter()
+    sections = {}
+    m = algorithm_models(gx, dev)
+    rng = torch.Generator(device=dev).manual_seed(31)
+    profiles = {label.split()[0]: (label, steps, fn) for label, steps, fn in
+                profiling.algorithm_configurations(torch.Generator(device=dev).manual_seed(8), dev)}
+    print(f"TF32 for f32 matmuls: {torch.backends.cuda.matmul.allow_tf32} (float32 matmul precision "
+          f"{torch.get_float32_matmul_precision()}); bf16 contractions: torch.mm(..., out_dtype=torch.float32)")
+    check(not torch.backends.cuda.matmul.allow_tf32, "f32 matmuls would run in TF32")
+
+    # SV1-SV4: SVGD on logistic regression.
+    c = SVGD_CFG
+    n, sel = c["n_particles"], gx.Selection.at["w"]
+    data = {d: simulate_logreg_data(torch.Generator(device=dev).manual_seed(s), c["n_data"], d)[:2]
+            for d, s in ((c["dim"], 5), (c["wide_dim"], 7))}
+    packed = [simulate_logreg_data(torch.Generator(device=dev).manual_seed(100 + i), c["n_data"], c["dim"])[:2]
+              for i in range(c["packed_problems"])]
+    # (problems, kind, steps): each run's configuration.
+    runs = {
+        "SV1": ([data[c["dim"]]], "f32", c["n_steps"]),
+        "SV2": ([data[c["dim"]]], "bf16", c["n_steps"]),
+        "SV3": ([data[c["wide_dim"]]], "bf16", c["wide_steps"]),
+        "SV4": (packed, "bf16", c["packed_steps"]),
+    }
+    # SV1's, SV3's and SV4's configurations at the CPU's width run on the
+    # CPU plain path in a worker process meanwhile (they take longer than
+    # all the card's runs).
+    held = ("SV1", "SV3", "SV4")
+    worker = multiprocessing.get_context("spawn").Pool(1)
+    cpu_references = {label: worker.apply_async(svgd_cpu_reference, (
+        [(X.cpu().numpy(), ys.cpu().numpy()) for X, ys in runs[label][0]], runs[label][1], c["cpu_particles"],
+        runs[label][2], c["step_size"], 32)) for label in held}
+
+    def svgd_run(label: str, g: torch.Generator, steps: int, particles: int = n):
+        problems, kind, _ = runs[label]
+        return svgd_logreg(gx, g, problems, torch.bfloat16 if kind == "bf16" else None, particles, steps,
+                           c["step_size"])
+
+    results = {}
+    for label, (problems, kind, steps) in runs.items():
+        d = problems[0][0].shape[1]
+        svgd_run(label, rng, 2)  # warm up
+        syncs = count_syncs(lambda: svgd_run(label, rng, c["sync_steps"]))
+        check(syncs == 0, f"{label}: {syncs} device synchronisations over a {c['sync_steps']}-step run")
+        # SV1 and SV2 start from the same particles (one seed), so their
+        # final means differ by the bf16 path's rounding alone.
+        g = torch.Generator(device=dev).manual_seed(SVGD_SEEDS[label])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        traces, phi = svgd_run(label, g, steps)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        per_step = ms / steps
+        tflops = svgd_flops(n, d, c["n_data"], len(problems)) / (per_step * 1e-3) / 1e12
+        traffic_ms = 1e3 * n * n * 4 * (2 if kind == "bf16" else 4) / HBM_BYTES_PER_S
+        check(bool(torch.isfinite(phi).all()), f"{label}: a non-finite Stein direction")
+        for tr, (X, _) in zip(traces, problems):
+            score, _ = logistic_regression.assess(tr.get_choices(), (X,), n)
+            gap = relative_gap(tr.get_score(), score)
+            check(gap < 1e-5, f"{label}: the traces' scores differ from a fresh assess by {gap}")
+        results[label] = [tr.get_choices()["w"] for tr in traces]
+        many = len(problems) > 1
+        print(f"[{card}] {label} SVGD logreg N={c['n_data']} D={d}{f' x {len(problems)} problems' if many else ''} "
+              f"{kind}, {n} particles x {steps} steps: {ms:.1f} ms, {per_step:.3f} ms/step, "
+              f"{len(problems) * n / (per_step * 1e-3):.4g} {'problem-' if many else ''}particle-updates/s; "
+              f"{tflops:.3f} TFLOP/s by bench.py's count ({100 * tflops * 1e12 / SVGD_PEAK_OPS[kind]:.3f}% of "
+              f"{SVGD_PEAK_OPS[kind] / 1e12:.0f}); unfused traffic bound {traffic_ms:.4f} ms/step; peak device "
+              f"memory {peak:.1f} MiB; 0 syncs over {c['sync_steps']} steps; scores equal a fresh assess")
+    # SV2 (bf16) against SV1 (f32) from the same particles: the largest
+    # per-dimension gap of the final means, in SV1's standard errors of
+    # the mean (particles taken as independent draws).
+    w1, w2 = results["SV1"][0].double(), results["SV2"][0].double()
+    bf16_gap = float(((w2.mean(0) - w1.mean(0)).abs() / (w1.var(0) / n).sqrt()).max())
+    check(bf16_gap < SVGD_BF16_MEAN_TOLERANCE, f"SV2's final means are {bf16_gap:.3f} of SV1's standard errors from "
+          f"SV1's (limit {SVGD_BF16_MEAN_TOLERANCE})")
+    print(f"SV2 (bf16) against SV1 (f32) from the same starting particles: final per-dimension means within "
+          f"{bf16_gap:.4f} of SV1's standard errors (limit {SVGD_BF16_MEAN_TOLERANCE}); largest gap "
+          f"{float((w2.mean(0) - w1.mean(0)).abs().max()):.2e}")
+
+    # The Stein direction (K3) on one step's x, g and h against float64 on
+    # the CPU, and its device time beside its bounds.
+    X, ys = data[c["dim"]]
+    traces, x0, unravel = sv._prepare_particles(rng, logistic_regression, (X,), gx.ChoiceMap.kw(ys=ys), sel, n)
+    g0 = sv._grad_batch(sel, traces, (X,), unravel)(x0)
+    _, h0 = sv.stein_direction(x0, g0)
+    ref = sv.stein_phi_block(*(v.double().cpu() for v in (x0, x0, g0, h0)), n)
+    scale = float(ref.abs().max())
+    stein_err = {}
+    for kind, kd in (("f32", None), ("bf16", torch.bfloat16)):
+        got = sv.stein_phi_block(x0, x0, g0, h0, n, kd)
+        stein_err[kind] = float((got.double().cpu() - ref).abs().max()) / scale
+    check(stein_err["f32"] < STEIN_F32_TOLERANCE and stein_err["bf16"] < STEIN_BF16_TOLERANCE,
+          f"the Stein direction on the card against float64: {stein_err} of max |phi| (limits "
+          f"{STEIN_F32_TOLERANCE}, {STEIN_BF16_TOLERANCE})")
+    # The bf16 contractions' product: bf16 operands, an f32 result, equal to
+    # the f32 product of the same rounded operands up to summation order.
+    xb = x0.to(torch.bfloat16)
+    prod = torch.mm(xb, xb.T, out_dtype=torch.float32)
+    widened = xb.float() @ xb.float().T
+    mm_gap = float((prod - widened).abs().max()) / float(widened.abs().max())
+    check(prod.dtype == torch.float32 and mm_gap < 1e-5,
+          f"torch.mm(bf16, bf16, out_dtype=float32) gives {prod.dtype}, {mm_gap:.2e} of max from the widened product")
+    print(f"torch.mm(bf16, bf16, out_dtype=torch.float32) at ({n}, {c['dim']}) x ({c['dim']}, {n}): an f32 result "
+          f"within {mm_gap:.2e} of max |product| of the widened operands' f32 product (limit 1e-5)")
+    # The scalar conjugate model at N=4096 against its closed form.
+    conj, phi = sv.svgd(rng, m.scalar, (), gx.ChoiceMap.kw(obs=2.0), gx.Selection.at["mu"], n_particles=n,
+                        n_steps=c["conjugate_steps"], step_size=0.3)
+    mus = conj.get_choices()["mu"].double()
+    check(abs(float(mus.mean()) - 1.0) < 0.05 and abs(float(mus.std(correction=0)) - 0.5**0.5) < 0.08
+          and float(phi[-1]) < 1e-3,
+          f"SVGD conjugate: mean {float(mus.mean())}, std {float(mus.std(correction=0))}, |phi| {float(phi[-1])}")
+    print(f"SVGD conjugate at N={n}, {c['conjugate_steps']} steps: mean {float(mus.mean()):.4f} (exact 1, bound "
+          f"0.05), std {float(mus.std(correction=0)):.4f} (exact {0.5**0.5:.4f}, bound 0.08), last mean |phi| "
+          f"{float(phi[-1]):.2e}")
+    # SV1's, SV3's and SV4's configurations at the CPU's width on both:
+    # after their steps the runs are still converging, at a pace that
+    # depends on N (the median bandwidth scales with 1 / log(N + 1)), so
+    # the card is held against the CPU at one N, every problem's final
+    # per-dimension particle mean within 5 combined SE (particles taken as
+    # independent draws); SV1's own means are reported beside them.
+    card_small = {label: svgd_run(label, rng, runs[label][2], c["cpu_particles"])[0] for label in held}
+    try:
+        t0 = time.perf_counter()
+        cpu_w = {label: [torch.from_numpy(w) for w in r.get(timeout=900)] for label, r in cpu_references.items()}
+        waited = time.perf_counter() - t0
+    finally:
+        worker.close()
+        worker.join()
+    for label in held:
+        dists = [within_combined_se(tr.get_choices()["w"], w, f"{label}'s configuration at N={c['cpu_particles']}"
+                                    f", problem {i}: the card against the CPU plain path")
+                 for i, (tr, w) in enumerate(zip(card_small[label], cpu_w[label]))]
+        print(f"{label}'s configuration ({runs[label][1]}, {len(runs[label][0])} problem(s), {runs[label][2]} "
+              f"steps) at N={c['cpu_particles']}: the card's final per-dimension particle means within "
+              f"{max(dists):.2f} combined SE of the CPU plain path's (limit 5)")
+    sv1_gap = float((results["SV1"][0].double().cpu().mean(0) - cpu_w["SV1"][0].double().mean(0)).abs().max())
+    print(f"SV1 (N={n}) differs from the CPU's N={c['cpu_particles']} means by up to {sv1_gap:.4f} (not held: a "
+          f"different N); the CPU worker was waited for {waited:.1f} s")
+    # K3's device time, beside its bounds (the CPU worker done, so the host
+    # enqueues at its own pace).
+    for kind, kd in (("f32", None), ("bf16", torch.bfloat16)):
+        fn = lambda v, kd=kd: sv.stein_direction(v, g0, None, kd)  # noqa: E731
+        for _ in range(3):
+            fn(x0)
+        device_ms, host_us = profiling.device_and_host(fn, x0, K3_CALLS)
+        ops_ms = 1e3 * svgd_flops(n, c["dim"], 0) / SVGD_PEAK_OPS[kind]
+        traffic_ms = 1e3 * n * n * 4 * (2 if kind == "bf16" else 4) / HBM_BYTES_PER_S
+        print(f"[{card}] K3 stein_direction N={n} D={c['dim']} {kind}: device {device_ms:.4f} ms per call ({K3_CALLS} "
+              f"calls behind a sleep kernel), host {host_us:.1f} us; bounds {ops_ms:.4f} ms (operations) and "
+              f"{traffic_ms:.4f} ms (unfused traffic); against float64 on the CPU: {stein_err[kind]:.2e} of max |phi|")
+    sections["SVGD"] = time.perf_counter() - t_phase
+
+    # M1: SMC² on the AR(1) against the Kalman-grid oracle.
+    s = SMC2_CFG
+    ys_list = lg_data(s["T"], s["seed"])
+    exact_mean, exact_lml = smc2_oracle(ys_list)
+
+    def smc2(n_theta: int, n_x: int):
+        return SMC2(m.lg_step, m.lg_init,
+                    prior_sample=lambda g, k: torch.randn(k, generator=g, device=g.device),
+                    log_prior=lambda a: gx.normal.logpdf(a, 0.0, 1.0), n_theta=n_theta, n_x=n_x, step_scales=0.25)
+
+    def smc2_summary(out) -> tuple[float, float]:
+        w = torch.softmax(out["log_weights"].double(), 0)
+        return float((w * out["thetas"].double()).sum()), float(out["lml"])
+
+    ys_dev = torch.tensor(ys_list, device=dev)
+    alg = smc2(s["n_theta"], s["n_x"])
+    alg.run(rng, ys_dev)  # warm up
+    seen = []
+    original = recording(smc2_module, "logsumexp_ess", seen)
+    try:
+        before = counted(ops)
+        syncs = count_syncs(lambda: alg.run(rng, ys_dev))
+        lse_n, ess_n = (a - b for a, b in zip(counted(ops), before))
+    finally:
+        smc2_module.logsumexp_ess = original
+    k1_err = max(k1_against_plain(ops, seen[-1])[0], k1_against_plain(ops, seen[len(seen) // 2])[0])
+    check(syncs == s["T"] - 1 and ess_n == s["T"] - 1 and lse_n == 1,
+          f"M1: {syncs} syncs, {ess_n} logsumexp_ess and {lse_n} logsumexp launches over T={s['T']} "
+          f"(want {s['T'] - 1}, {s['T'] - 1}, 1)")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, outs = timed_runs(lambda: alg.run(rng, ys_dev), 3, warm=False)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    for out in outs:
+        mean, lml = smc2_summary(out)
+        check(abs(mean - exact_mean) < 0.06 and abs(lml - exact_lml) < 0.6 and out["n_rejuvenations"] >= 1
+              and 0.1 < float(out["accept_rate"]) <= 1.0,
+              f"M1: theta mean {mean} (exact {exact_mean}), LML {lml} (exact {exact_lml}), "
+              f"{out['n_rejuvenations']} rejuvenations, accept rate {float(out['accept_rate'])}")
+    small = [smc2_summary(smc2(s["small"], s["small"]).run(g, torch.tensor(ys_list, device=d)))
+             for d, g in ((dev, rng), ("cpu", torch.Generator().manual_seed(33)))]
+    for (mean, lml), where in zip(small, ("card", "CPU")):
+        check(abs(mean - exact_mean) < 0.06 and abs(lml - exact_lml) < 0.6,
+              f"M1 {s['small']}x{s['small']} on the {where}: theta mean {mean}, LML {lml}")
+    check(abs(small[0][0] - small[1][0]) < 0.12 and abs(small[0][1] - small[1][1]) < 1.2,
+          f"M1 {s['small']}x{s['small']}: the card {small[0]} against the CPU {small[1]}")
+    ms = statistics.median(times)
+    mean, lml = smc2_summary(outs[-1])
+    print(f"[{card}] M1 SMC2 {s['n_theta']} x {s['n_x']} (T={s['T']}): {ms:.1f} ms per run (median of 3: "
+          f"{', '.join(f'{t:.1f}' for t in times)}), {s['n_theta'] * s['n_x'] * (s['T'] - 1) / (ms * 1e-3):.4g} state "
+          f"particle-steps/s (the main filter's steps), {outs[-1]['n_rejuvenations']} rejuvenations, accept rate "
+          f"{float(outs[-1]['accept_rate']):.3f}; peak device memory {peak:.1f} MiB")
+    print(f"M1 against the Kalman-grid oracle: theta mean {mean:.4f} (exact {exact_mean:.4f}, bound 0.06), LML "
+          f"{lml:.4f} (exact {exact_lml:.4f}, bound 0.6); {s['small']}x{s['small']}: card {small[0][0]:.4f}, "
+          f"{small[0][1]:.4f}, CPU {small[1][0]:.4f}, {small[1][1]:.4f}; {syncs} syncs, {ess_n} logsumexp_ess and "
+          f"{lse_n} logsumexp launches per run (T={s['T']}); K1 against its plain twin on the run's theta weights "
+          f"within {k1_err:.2e} of max(1, |ref|)")
+    print_profile(card, "M1 SMC2 time step", profiling.trace(profiles["M1"][2], profiles["M1"][1]))
+    print_profile(card, "M1 SMC2 rejuvenation", profiling.trace(profiles["M1r"][2], profiles["M1r"][1]))
+
+    sections["M1"] = time.perf_counter() - t_phase - sum(sections.values())
+    # R1: the RBPF at K=1M.
+    r = RBPF_CFG
+    ys_rb = rbpf_data(r["T"], r["data_seed"])
+    ys_dev = torch.tensor(ys_rb, device=dev)[:, None]
+    linear = RaoBlackwellFilter(m.z_step, m.z_init, lambda z: m.linear, r["n_particles"])
+    lml_lin, _ = linear.run(rng, ys_dev)
+    exact_lin = scalar_kalman_lml(RB_A_X, RB_Q_X, RB_R0, ys_rb)
+    check(abs(float(lml_lin) - exact_lin) < 1e-5 * max(1.0, abs(exact_lin)),
+          f"R1 fully linear: LML {float(lml_lin)} against the Kalman LML {exact_lin}")
+    rb = RaoBlackwellFilter(m.z_step, m.z_init, m.lgss_of_z, r["n_particles"])
+    rb.run(rng, ys_dev)  # warm up
+    seen = []
+    original = recording(rbpf_module, "logsumexp_ess", seen)
+    try:
+        before = counted(ops)
+        syncs = count_syncs(lambda: rb.run(rng, ys_dev))
+        lse_n, ess_n = (a - b for a, b in zip(counted(ops), before))
+    finally:
+        rbpf_module.logsumexp_ess = original
+    k1_err = max(k1_against_plain(ops, seen[-1])[0], k1_against_plain(ops, seen[len(seen) // 2])[0])
+    check(syncs == r["T"] - 1 and ess_n == r["T"] - 1 and lse_n == 1,
+          f"R1: {syncs} syncs, {ess_n} logsumexp_ess and {lse_n} logsumexp launches over T={r['T']}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, outs = timed_runs(lambda: rb.run(rng, ys_dev)[0], r["runs"], warm=False)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    m_cpu = algorithm_models(gx, "cpu")
+    rb_cpu = RaoBlackwellFilter(m_cpu.z_step, m_cpu.z_init, m_cpu.lgss_of_z, r["cpu_particles"])
+    g_cpu = torch.Generator().manual_seed(34)
+    ys_cpu = torch.tensor(ys_rb)[:, None]
+    cpu_lmls = torch.stack([rb_cpu.run(g_cpu, ys_cpu)[0] for _ in range(r["runs"])])
+    dist = within_combined_se(torch.stack(outs)[:, None], cpu_lmls[:, None], "R1 LML, the card against the CPU")
+    ms = statistics.median(times)
+    print(f"[{card}] R1 RBPF K={r['n_particles']} T={r['T']}: {ms:.1f} ms per filter (median of {r['runs']}), "
+          f"{r['n_particles'] * r['T'] / (ms * 1e-3):.4g} particle-steps/s; peak device memory {peak:.1f} MiB")
+    print(f"R1: mean LML {float(torch.stack(outs).mean()):.4f} over {r['runs']} runs, within {dist:.2f} combined SE "
+          f"of the CPU plain path's {float(cpu_lmls.mean()):.4f} (K={r['cpu_particles']}); fully linear case "
+          f"{float(lml_lin):.6f} against the Kalman LML {exact_lin:.6f}; {syncs} syncs, {ess_n} logsumexp_ess and "
+          f"{lse_n} logsumexp launches per filter; K1 against its plain twin on the filter's own weights within "
+          f"{k1_err:.2e} of max(1, |ref|)")
+    print_profile(card, "R1 RBPF step", profiling.trace(profiles["R1"][2], profiles["R1"][1]))
+
+    sections["R1"] = time.perf_counter() - t_phase - sum(sections.values())
+    # A1: ABC-SMC at 1M particles, and rejection ABC at 1M.
+    a = ABC_CFG
+    abc = ABCSMC(m.abc_model, (), gx.Selection.at["theta"], summary_fn=lambda tr: tr.get_choices()["y"],
+                 observed_summary=1.0, n_particles=a["n_particles"], n_generations=a["n_generations"],
+                 n_moves=a["n_moves"])
+    abc.run(rng)  # warm up
+    before = counted(ops)
+    syncs = count_syncs(lambda: abc.run(rng))
+    lse_n = counted(ops)[0] - before[0]
+    check(lse_n == a["n_generations"], f"A1: {lse_n} logsumexp launches over {a['n_generations']} generations")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, outs = timed_runs(lambda: abc.run(rng), a["runs"], warm=False)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    means, stds = [], []
+    for out in outs:
+        th = out["traces"].get_choices()["theta"].double()
+        eps = out["epsilons"]
+        means.append(float(th.mean()))
+        stds.append(float(th.std(correction=0)))
+        check(bool((eps[1:] < eps[:-1]).all()) and bool((out["distances"] <= eps[-1]).all())
+              and 0.02 < float(out["accept_rate"]) < 0.95 and abs(stds[-1] - 0.2**0.5) < 0.12,
+              f"A1: epsilons {eps.tolist()}, accept rate {float(out['accept_rate'])}, std {stds[-1]}")
+    mean_line = within_se(means, 0.8, "A1 theta mean over runs")
+    rej = abc_rejection(rng, m.abc_model, (), lambda tr: tr.get_choices()["y"], 1.0,
+                        tolerance=a["rejection_tolerance"], n_particles=a["n_particles"])
+    acc = rej["accepted"]
+    est = float((rej["traces"].get_choices()["theta"] * acc).sum() / acc.sum())
+    check(abs(est - 0.8) < 0.02 and bool((rej["distances"][acc] < a["rejection_tolerance"]).all()),
+          f"A1 rejection: accepted mean {est}")
+    ms = statistics.median(times)
+    print(f"[{card}] A1 ABC-SMC {a['n_particles']} particles, {a['n_generations']} generations x {a['n_moves']} "
+          f"moves: {ms:.1f} ms per run (median of {a['runs']}), {a['n_particles'] * a['n_generations'] * a['n_moves'] / (ms * 1e-3):.4g} "
+          f"particle-moves/s; peak device memory {peak:.1f} MiB; {syncs} syncs and {lse_n} logsumexp launches per run")
+    print(f"A1: {mean_line}; population std {statistics.fmean(stds):.4f} (exact {0.2**0.5:.4f}, bound 0.12); final "
+          f"tolerance {float(outs[-1]['epsilons'][-1]):.4g}; rejection ABC at tolerance {a['rejection_tolerance']}: "
+          f"accept rate {float(rej['accept_rate']):.4f}, accepted mean {est:.4f} (exact 0.8, bound 0.02)")
+
+    sections["A1"] = time.perf_counter() - t_phase - sum(sections.values())
+    # I1: involutive MH with the scaling move at 8192 chains.
+    ic = INVOLUTIVE_CFG
+    tr0, _ = m.lognormal.importance(rng, gx.ChoiceMap.kw(y=2.0), (), n=ic["n_chains"])
+    new_tr, log_alpha = involutive_step(rng, tr0, gx.Selection.at["x"], m.aux_scale, m.scale_move)
+    u = torch.log(new_tr.get_choices()["x"] / tr0.get_choices()["x"])
+    s_old, _ = m.lognormal.assess(tr0.get_choices(), (), ic["n_chains"])
+    s_new, _ = m.lognormal.assess(new_tr.get_choices(), (), ic["n_chains"])
+    gap = relative_gap(log_alpha, s_new - s_old + u)
+    check(gap < 1e-4, f"I1: log alpha against the hand derivation: {gap}")
+
+    def inv_chain(steps: int):
+        t = tr0
+        for _ in range(steps):
+            t, _ = involutive_mh(rng, t, gx.Selection.at["x"], m.aux_scale, m.scale_move)
+        return t
+
+    syncs = count_syncs(lambda: inv_chain(ic["sync_steps"]))
+    check(syncs == 0, f"I1: {syncs} syncs over {ic['sync_steps']} steps")
+    times, (final,) = timed_runs(lambda: inv_chain(ic["n_steps"]), 1, warm=False)
+    z = torch.log(final.get_choices()["x"]).double().cpu()
+    se_mean, se_var = math.sqrt(0.5 / z.numel()), 0.5 * math.sqrt(2.0 / (z.numel() - 1))
+    check(abs(float(z.mean()) - 1.0) < 5 * se_mean and abs(float(z.var()) - 0.5) < 5 * se_var,
+          f"I1: log x mean {float(z.mean())}, variance {float(z.var())} against N(1, 1/2)")
+    print(f"[{card}] I1 involutive MH (scaling move) C={ic['n_chains']}: {times[0] / ic['n_steps']:.3f} ms per step "
+          f"({ic['n_steps']} steps); log x over the chains' last states: mean {float(z.mean()):.4f} (exact 1, 5 SE "
+          f"{5 * se_mean:.4f}), variance {float(z.var()):.4f} (exact 0.5, 5 SE {5 * se_var:.4f}); log alpha against "
+          f"the hand derivation within {gap:.2e}; {syncs} syncs over {ic['sync_steps']} steps")
+
+    sections["I1"] = time.perf_counter() - t_phase - sum(sections.values())
+    # T1: parallel tempering on the bimodal target.
+    p = PT_CFG
+    target = gx.Target(m.bimodal, (), gx.ChoiceMap.kw(y=4.0))
+    pt = ParallelTempering(betas=torch.tensor([1.0, 0.5, 0.25, 0.1, 0.02], device=dev),
+                           request=GaussianDrift(gx.Selection.at["mu"], 0.5), n_moves=2)
+
+    def pt_run(sweeps: int):
+        return pt.run(rng, target, sweeps, collect=lambda t: t.get_choices()["mu"],
+                      init_constraint=gx.ChoiceMap.kw(mu=2.0))
+
+    syncs = count_syncs(lambda: pt_run(p["sync_sweeps"]))
+    check(syncs == 0, f"T1: {syncs} syncs over {p['sync_sweeps']} sweeps")
+    times, (out,) = timed_runs(lambda: pt_run(p["n_sweeps"]), 1, warm=False)
+    neg = float((out.collected[p["burn"]:] < 0.0).float().mean())
+    check(0.1 < neg < 0.9 and torch.equal(torch.sort(out.perm).values.cpu(), torch.arange(5))
+          and bool((out.swap_rates > 0.0).all()),
+          f"T1: share of cold draws below 0 {neg}, perm {out.perm.tolist()}, swap rates {out.swap_rates.tolist()}")
+    print(f"[{card}] T1 parallel tempering, 5 replicas, {p['n_sweeps']} sweeps x 2 moves: {times[0] / p['n_sweeps']:.3f} "
+          f"ms per sweep; the cold chain below 0 in {neg:.3f} of its draws after {p['burn']} (both modes: bound "
+          f"(0.1, 0.9)); swap rates {', '.join(f'{v:.3f}' for v in out.swap_rates.tolist())}; {syncs} syncs over "
+          f"{p['sync_sweeps']} sweeps")
+    print_profile(card, "SV1 SVGD step (f32)", profiling.trace(profiles["SV1"][2], profiles["SV1"][1]))
+    print_profile(card, "SV2 SVGD step (bf16)", profiling.trace(profiles["SV2"][2], profiles["SV2"][1]))
+    sections["T1 and profiles"] = time.perf_counter() - t_phase - sum(sections.values())
+    print(f"[{card}] algorithms phase: {time.perf_counter() - t_phase:.1f} s in all ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in sections.items()) + ")")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2233,6 +2802,7 @@ def main() -> None:
     # No module of the samplers' path reduces a 1-D weight vector: it
     # launches no K1, and its counts are read and reported, not required.
     paths["samplers"] = drive(lambda: phase_samplers(gx, card))
+    paths["algorithms"] = drive(lambda: phase_algorithms(gx, ops, card))
     backward["grad_max_abs_err"] = max(backward["grad_max_abs_err"], *vi_grad_err)
     launches = {name: sum(p[name] for p in paths.values()) for name in ("logsumexp", "logsumexp_ess")}
     for name, count in paths["particle"].items():
@@ -2245,6 +2815,8 @@ def main() -> None:
     check(paths["vi"]["logsumexp"] > 0, "the VI path (ELBO, IWELBO, the guided LML) launched no logsumexp kernel")
     for name, count in paths["library"].items():
         check(count > 0, f"the library path (the SV filter, PMMH, particle Gibbs) launched no {name} kernel")
+    for name, count in paths["algorithms"].items():
+        check(count > 0, f"the last six algorithms' path (SMC², the RBPF, ABC-SMC) launched no {name} kernel")
     print("kernel launches on the main paths: " + ", ".join(
         f"{name} {count} (" + ", ".join(f"{path} path {p[name]}" for path, p in paths.items()) + ")"
         for name, count in launches.items()))

@@ -9,6 +9,7 @@ particle count.
 """
 
 import dataclasses
+import functools
 from typing import Any, TypeVar
 
 import torch
@@ -70,6 +71,59 @@ class Pytree:
 
 
 tree_map = pytree.tree_map
+
+
+def _jax_order(node: Any) -> list:
+    """The leaves of `node` in JAX's flatten order: a dict's children by
+    sorted key (torch's `_pytree` keeps insertion order), every other
+    node's children in the order of its own flatten."""
+    if isinstance(node, dict):
+        return [leaf for k in sorted(node) for leaf in _jax_order(node[k])]
+    children = pytree.tree_flatten(node, is_leaf=lambda x: x is not node)[0]
+    if len(children) == 1 and children[0] is node:
+        return [node]
+    return [leaf for child in children for leaf in _jax_order(child)]
+
+
+def ravel_pytree(tree: Any, batch_shape: tuple = ()):
+    """Flatten a pytree of tensors to one 1-D vector: `(flat, unravel)`,
+    with `unravel(flat)` the tree back (JAX's
+    `jax.flatten_util.ravel_pytree`). The leaves are concatenated in JAX's
+    leaf order, a dict's children by sorted key, so a flat vector means the
+    same in both packages; the vector takes the leaves' promoted dtype and
+    `unravel` casts each leaf back to its own. With `batch_shape`, every
+    leaf carries those leading axes and `flat` is `(*batch_shape, d)` (with
+    `(n,)`, JAX's `vmap(lambda t: ravel_pytree(t)[0])` over n rows);
+    `unravel` takes any leading axes in front of the `d` columns.
+
+    >>> import torch
+    >>> from genjax_tpu_torch.core.pytree import ravel_pytree
+    >>> flat, unravel = ravel_pytree({"b": torch.tensor([1.0, 2.0]), "a": torch.tensor(3.0)})
+    >>> flat.tolist(), unravel(flat)["b"].tolist()
+    ([3.0, 1.0, 2.0], [1.0, 2.0])
+    """
+    batch_shape = tuple(batch_shape)
+    leaves, spec = pytree.tree_flatten(tree)
+    # Positions, in torch's leaf order, of the leaves in JAX's order.
+    order = _jax_order(pytree.tree_unflatten(list(range(len(leaves))), spec))
+    vals = [torch.as_tensor(leaves[i]) for i in order]
+    dtype = functools.reduce(torch.promote_types, [v.dtype for v in vals]) if vals else torch.float32
+    shapes = [v.shape[len(batch_shape) :] for v in vals]
+    sizes = [int(torch.Size(s).numel()) for s in shapes]
+    dtypes = [v.dtype for v in vals]
+    if vals:
+        flat = torch.cat([v.to(dtype).reshape((*batch_shape, -1)) for v in vals], dim=-1)
+    else:
+        flat = torch.zeros(*batch_shape, 0)
+
+    def unravel(vec: torch.Tensor) -> Any:
+        parts = torch.split(vec, sizes, dim=-1) if sizes else []
+        out = list(leaves)
+        for i, part, shape, dt in zip(order, parts, shapes, dtypes):
+            out[i] = part.reshape((*vec.shape[:-1], *shape)).to(dt)
+        return pytree.tree_unflatten(out, spec)
+
+    return flat, unravel
 
 
 def n_leaves(tree: Any) -> int:

@@ -9,7 +9,8 @@ for
 with y_0 observed at t = 0 (no predict step before the first update).
 The recursions are Python loops over time of small dense algebra; a step
 also takes a batch of states (`mu` `(..., d)`, `P` `(..., d, d)`), so a
-filter per particle is one call. `LinearGaussianSSM.build` makes the
+filter per particle is one call; a scalar state and observation take an
+elementwise path. `LinearGaussianSSM.build` makes the
 matrices on the CUDA card unless the caller passes `device="cpu"`; the
 recursions run where the matrices are.
 """
@@ -30,9 +31,33 @@ def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (M @ v[..., None])[..., 0]
 
 
+def _predict_update_scalar(A, Q, H, R, mu, P, y, predict=True):
+    """`_predict_update_full` for a scalar state and observation (every
+    matrix 1 x 1), elementwise: over a batch of a million particles the
+    batched triangular solves and 1 x 1 matmuls run as chunks of cuBLAS
+    calls (46 ms per RBPF step at K=1M on an H100 80GB HBM3, 700 W)."""
+    if isinstance(predict, torch.Tensor):
+        mu_pred = torch.where(predict, A[..., 0] * mu, mu)
+        P_pred = torch.where(predict, A * P * A + Q, P)
+    elif predict:
+        mu_pred, P_pred = A[..., 0] * mu, A * P * A + Q
+    else:
+        mu_pred, P_pred = mu, P
+    S = H * P_pred * H + R
+    # NaN where S is not positive, as `_cholesky` makes the factor.
+    chol = torch.where(S > 0, torch.sqrt(S), torch.nan)
+    resid = y - H[..., 0] * mu_pred
+    white = resid / chol[..., 0]
+    ll = -0.5 * (white**2).sum(-1) - torch.log(chol[..., 0, 0]) - 0.5 * math.log(2.0 * math.pi)
+    K = P_pred * H / S
+    return mu_pred + K[..., 0] * resid, (1.0 - K * H) * P_pred, ll, mu_pred, P_pred
+
+
 def _predict_update_full(A, Q, H, R, mu, P, y, predict=True):
     """Predict and update, returning the predicted moments too (the
     smoother needs them): the one implementation of the Kalman algebra."""
+    if P.shape[-1] == 1 and H.shape[-2] == 1:
+        return _predict_update_scalar(A, Q, H, R, mu, P, y, predict)
     if isinstance(predict, torch.Tensor):
         mu_pred = torch.where(predict, _mv(A, mu), mu)
         P_pred = torch.where(predict, A @ P @ A.mT + Q, P)

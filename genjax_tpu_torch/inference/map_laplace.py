@@ -28,7 +28,7 @@ from genjax_tpu_torch.core.pytree import Pytree
 from genjax_tpu_torch.core.typing import FloatArray, plain
 from genjax_tpu_torch.inference.requests.hmc import _is_float, make_selection_grad_fn
 
-__all__ = ["LaplaceApproximation", "adam", "laplace_approximation", "map_estimate"]
+__all__ = ["LaplaceApproximation", "adagrad", "adam", "laplace_approximation", "map_estimate"]
 
 
 class adam:
@@ -52,6 +52,26 @@ class adam:
         c1, c2 = 1 - self.b1**count, 1 - self.b2**count
         updates = [-self.learning_rate * (m / c1) / (torch.sqrt(v / c2) + self.eps) for m, v in zip(mu, nu)]
         return updates, (count, mu, nu)
+
+
+class adagrad:
+    """Adagrad with optax's formula and defaults (`optax.adagrad`: the
+    accumulator starts at `initial_accumulator_value`, and the update is
+    `-lr * g / sqrt(sum g^2 + eps)` where the sum is positive), with
+    `adam`'s `init`/`update` over a list of tensors."""
+
+    def __init__(self, learning_rate: float, initial_accumulator_value: float = 0.1, eps: float = 1e-7):
+        self.learning_rate, self.initial_accumulator_value, self.eps = learning_rate, initial_accumulator_value, eps
+
+    def init(self, params: list) -> list:
+        return [torch.full_like(p, self.initial_accumulator_value) for p in params]
+
+    def update(self, grads: list, state: list) -> tuple[list, list]:
+        state = [g * g + s for g, s in zip(grads, state)]
+        updates = [
+            -self.learning_rate * torch.where(s > 0, torch.rsqrt(s + self.eps), 0.0) * g for g, s in zip(grads, state)
+        ]
+        return updates, state
 
 
 def map_estimate(

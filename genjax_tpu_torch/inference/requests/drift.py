@@ -20,6 +20,7 @@ from genjax_tpu_torch.core.concepts import Argdiffs, EditRequest, Retdiff, Weigh
 from genjax_tpu_torch.core.diff import Diff
 from genjax_tpu_torch.core.gfi import Trace, Update
 from genjax_tpu_torch.core.pytree import Pytree
+from genjax_tpu_torch.core.typing import is_per_particle, plain
 
 R = TypeVar("R")
 
@@ -27,12 +28,17 @@ __all__ = ["GaussianDrift"]
 
 
 def _scale_leaves(scale: Any, like: ChoiceMap) -> list:
-    """A scale spec (a number, a 0-d tensor, or a choice map with one
+    """A scale spec (a number, a 0-d tensor, a `per_particle` tensor, or a choice map with one
     standard deviation per address of `like`) as one standard deviation
     per leaf of `like`, in its leaf order. The two maps are lined up by
     address, whatever the record of their values."""
     if isinstance(scale, (int, float)) or (isinstance(scale, torch.Tensor) and scale.dim() == 0):
         return [scale] * len(pytree.tree_leaves(like))
+    if is_per_particle(scale):
+        # One standard deviation per particle (a ladder of temperatures in
+        # `parallel_tempering`), shaped to broadcast against each leaf.
+        s = plain(scale)
+        return [s.reshape(s.shape + (1,) * (v.dim() - 1)) for v in pytree.tree_leaves(like)]
     unrecorded = like.map_choices(lambda c: Choice(c.v, 0))
     return pytree.tree_leaves(pytree.tree_map(lambda _, s: s, unrecorded, scale))
 
@@ -42,8 +48,8 @@ class GaussianDrift(EditRequest):
     """Propose `v' = v + scale * xi`, `xi ~ N(0, I)`, at every selected
     address; the weight is the exact MH log acceptance ratio.
 
-    `scale` is a number or a choice map with one standard deviation per
-    selected address. The selected addresses must hold
+    `scale` is a number, a choice map with one standard deviation per
+    selected address, or a `per_particle` tensor with one per particle. The selected addresses must hold
     continuous values: a discrete site would be proposed off its support
     and scored `-inf` (always rejected), sound but useless.
 

@@ -87,6 +87,15 @@ def make_selection_grad_fn(selection: Selection, trace: Trace[Any], argdiffs: Ar
     return fn
 
 
+def grad_tree_unzip(tree):
+    """Split a tree into its differentiable (floating-point) leaves and the
+    rest: `(grad_tree, nongrad_tree)`, each with `None` where the other
+    holds the leaf (JAX's `grad_tree_unzip`)."""
+    grad_tree = pytree.tree_map(lambda v: v if _is_float(v) else None, tree)
+    nongrad_tree = pytree.tree_map(lambda v: None if _is_float(v) else v, tree)
+    return grad_tree, nongrad_tree
+
+
 def selection_gradient(
     selection: Selection, trace: Trace[Any], argdiffs: Argdiffs
 ) -> tuple[ChoiceMap, ChoiceMap]:
@@ -271,6 +280,7 @@ __all__ = [
     "HMC",
     "MALA",
     "assess_momenta",
+    "grad_tree_unzip",
     "make_selection_grad_fn",
     "sample_momenta",
     "selection_gradient",

@@ -61,17 +61,43 @@ def ess(log_weights: torch.Tensor) -> torch.Tensor:
     return logsumexp_ess(log_weights)[1]
 
 
+def prefix_cdf(weights: torch.Tensor) -> torch.Tensor:
+    """The cumulative sums of nonnegative `weights` along the last axis,
+    divided by their total, in float64: the one place that sets the cdf's
+    precision for every resampler.
+
+    A particle of zero weight must repeat its predecessor's cdf, so that it
+    owns no slot and no query lands on it. A sequential sum repeats it
+    exactly, but the card's parallel scan adds a tile's total to the next
+    tile's prefix in another order, and in float32 the cdf then steps up by
+    an ulp (about 6e-8) often enough that at a million particles such
+    particles take slots, about `n` ulps' worth of queries per step
+    (ABC-SMC's survivors drew particles outside the tolerance). In float64
+    a step is about 1e-16, which makes the fault negligible at any
+    particle count the card holds (about 2e-10 picks per stepped particle
+    at a million), not impossible."""
+    cdf = torch.cumsum(weights, -1, dtype=torch.float64)
+    return cdf / torch.clamp(cdf[..., -1:], min=1e-300)
+
+
+def _per_row(v: FloatArray) -> FloatArray:
+    """A scalar as it is (a Python number stays on the host: copying it to
+    the card would wait for it); one value per row `(R,)` as a column
+    `(R, 1)` that broadcasts against the rows."""
+    return v.unsqueeze(-1) if isinstance(v, torch.Tensor) and v.dim() else v
+
+
 def normalized_cdf(log_weights: torch.Tensor, lse: FloatArray | None = None) -> torch.Tensor:
-    """The cumulative normalized weights: `cumsum(exp(log_weights - lse))`
-    (the softmax that JAX's `jax.nn.softmax` computes), divided by its own
-    total. `lse` is `logsumexp(log_weights)` where the caller holds it."""
+    """The cumulative normalized weights along the last axis, in float64
+    (`prefix_cdf`): `cumsum(exp(log_weights - lse))` (the softmax that
+    JAX's `jax.nn.softmax` computes), divided by its own total. `lse` is
+    `logsumexp(log_weights)` over the last axis where the caller holds it
+    (one per row for a batch of rows); dividing by the total, as the
+    softmax divides by its sum, cancels the rounding of `lse`, an error
+    that would move every comparison near a tie the same way."""
     if lse is None:
         lse = logsumexp(log_weights)
-    cdf = torch.cumsum(torch.exp(log_weights - lse), 0)
-    # The weights sum to 1 only up to the rounding of `lse`, an error that
-    # would move every comparison near a tie the same way; dividing by
-    # their own total, as the softmax divides by its sum, cancels it.
-    return cdf / cdf[-1]
+    return prefix_cdf(torch.exp(log_weights - _per_row(lse)))
 
 
 def systematic_cum_counts(
@@ -79,17 +105,19 @@ def systematic_cum_counts(
 ) -> torch.Tensor:
     """The cumulative block counts `N_i` of systematic resampling: output
     slots `[N_{i-1}, N_i)` copy particle i. `u0` is the resampler's one
-    uniform draw in [0, 1); `lse` as in `normalized_cdf`."""
+    uniform draw in [0, 1); `lse` as in `normalized_cdf`. Over a batch of
+    rows `(R, n)`, `u0` and `lse` hold one value per row."""
     cdf = normalized_cdf(log_weights, lse)
-    return torch.clamp(torch.floor(n * cdf - u0).to(torch.int64) + 1, 0, n)
+    return torch.clamp(torch.floor(n * cdf - _per_row(u0)).to(torch.int64) + 1, 0, n)
 
 
 def cum_counts_to_ancestors(cum: torch.Tensor, n: int) -> torch.Tensor:
     """The ancestor of each output slot: the particle whose block holds it.
     Slots past the last block end (an f32 cdf that ends below 1) go to the
-    last particle that owns a block, as in the JAX scatter-and-cummax."""
+    last particle that owns a block, as in the JAX scatter-and-cummax.
+    Over a batch of rows, each row's indices into its own particles."""
     slots = torch.arange(n, device=cum.device, dtype=cum.dtype)
-    return torch.searchsorted(cum, torch.minimum(slots, cum[-1] - 1), right=True)
+    return torch.searchsorted(cum, torch.minimum(slots, cum[..., -1:] - 1), right=True)
 
 
 def systematic_resample(
@@ -103,8 +131,13 @@ def systematic_resample(
 
 def sorted_queries_ancestors(cdf: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
     """`searchsorted(cdf, us, side='right')`, clipped into range: the
-    ancestor of each query (JAX's `_sorted_queries_ancestors`)."""
-    return torch.searchsorted(cdf, us, right=True).clamp_(0, cdf.shape[0] - 1)
+    ancestor of each query (JAX's `_sorted_queries_ancestors`). The queries
+    are compared at the cdf's precision (float64, `prefix_cdf`). A query at
+    or past the cdf's end (a float32 query that rounds to 1) goes to the
+    last particle of positive weight, where JAX's clip gives the last
+    particle whatever its weight."""
+    last = torch.searchsorted(cdf, cdf[-1:], right=False)
+    return torch.minimum(torch.searchsorted(cdf, us.to(cdf.dtype), right=True), last)
 
 
 def sorted_uniforms(rng: torch.Generator, n: int, dtype=torch.float32) -> torch.Tensor:
@@ -167,8 +200,7 @@ def residual_ancestors(
     floors = floors.to(torch.int64)
     cum = torch.cumsum(floors, 0)
     det_anc = cum_counts_to_ancestors(cum, n)
-    rem_cdf = torch.cumsum(residual / torch.clamp(residual.sum(), min=1e-38), 0)
-    rem_anc = sorted_queries_ancestors(rem_cdf, us)[perm]
+    rem_anc = sorted_queries_ancestors(prefix_cdf(residual), us)[perm]
     slots = torch.arange(n, device=us.device)
     return torch.where(slots < cum[-1], det_anc, rem_anc).clamp_(0, log_weights.shape[0] - 1)
 
@@ -536,6 +568,7 @@ __all__ = [
     "multinomial_ancestors",
     "multinomial_resample",
     "normalized_cdf",
+    "prefix_cdf",
     "residual_ancestors",
     "residual_resample",
     "sorted_queries_ancestors",

@@ -44,6 +44,56 @@ def _loglik(rng: torch.Generator, particles, obs_selection: Selection) -> FloatA
     return particles.project(rng, obs_selection)
 
 
+def retempered_log_alpha(
+    rng: torch.Generator, trace, proposed, w, request: EditRequest, beta, obs_selection: Selection, loglik
+):
+    """The MH log acceptance ratio of an edit (`proposed` and its weight
+    `w` from `request.edit` of `trace`) re-tempered to the bridge
+    `p(z) p(y|z)^beta`, and the proposal's log-likelihood:
+    `(alpha, new_loglik)`.
+
+    `w` is the full-joint ratio; taking off the untempered change of the
+    likelihood and adding it back scaled by `beta` re-tempers it exactly.
+    For `Regenerate(sel)` the weight is the change of the joint, and the
+    prior proposal terms come off first (as `mcmc._log_accept_ratio` takes
+    them off), so alpha = beta * delta-loglik; the general form covers
+    requests whose weight already is an acceptance ratio. `beta` is a
+    number or one per particle; `loglik` is `trace`'s log-likelihood."""
+    new_loglik = _loglik(rng, proposed, obs_selection)
+    delta_ll = new_loglik - loglik
+    if isinstance(request, Regenerate):
+        sel = request.selection
+        proposal_term = proposed.project(rng, sel) - trace.project(rng, sel)
+        return (w - delta_ll) - proposal_term + beta * delta_ll, new_loglik
+    return (w - delta_ll) + beta * delta_ll, new_loglik
+
+
+def tempered_mh(
+    rng: torch.Generator,
+    trace,
+    request: EditRequest,
+    beta: FloatArray,
+    obs_selection: Selection,
+    loglik: FloatArray | None = None,
+):
+    """One MH step targeting the bridge `p(z) p(y | z)^beta`, on every
+    chain of `trace` (`beta` a number, or one per chain).
+
+    Works with any edit request: the full-joint acceptance ratio is
+    re-tempered by `retempered_log_alpha` (for `Regenerate` the
+    prior-proposal terms come off first). Passing the current `loglik`
+    saves the projection on the observed addresses.
+
+    Returns `(new_trace, new_loglik, accepted)`. JAX's lives in
+    `parallel_tempering`, which re-exports this one."""
+    if loglik is None:
+        loglik = trace.project(rng, obs_selection)
+    proposed, w, _, _ = request.edit(rng, trace, Diff.no_change(trace.get_args()))
+    alpha, new_loglik = retempered_log_alpha(rng, trace, proposed, w, request, beta, obs_selection, loglik)
+    accepted = torch.log(torch.rand(alpha.shape, generator=rng, device=rng.device)) < alpha
+    return where_tree(accepted, proposed, trace), torch.where(accepted, new_loglik, loglik), accepted
+
+
 @Pytree.dataclass
 class TemperedSMC(Generic[R], Pytree):
     """Anneal K particles from the prior (beta = 0) to the posterior
@@ -77,26 +127,9 @@ class TemperedSMC(Generic[R], Pytree):
     ess_threshold: float = Pytree.static(default=0.5)
 
     def _tempered_mh_sweep(self, rng, particles, logliks, beta, obs_selection: Selection, request: EditRequest):
-        """One MH sweep over the particle axis targeting `p(z) p(y|z)^beta`.
-
-        `request.edit` gives the full-joint weight `w`; taking off the
-        untempered change of the likelihood and adding it back scaled by
-        `beta` re-tempers the acceptance ratio exactly. (For
-        `Regenerate(sel)` the weight is the change of the joint, and the
-        prior proposal terms cancel the bridge's prior factor, so alpha =
-        beta * delta-loglik; the general form covers requests whose weight
-        already is an acceptance ratio.)"""
-        proposed, w, _, _ = request.edit(rng, particles, Diff.no_change(particles.get_args()))
-        new_loglik = _loglik(rng, proposed, obs_selection)
-        delta_ll = new_loglik - logliks
-        if isinstance(request, Regenerate):
-            sel = request.selection
-            proposal_term = proposed.project(rng, sel) - particles.project(rng, sel)
-            alpha = (w - delta_ll) - proposal_term + beta * delta_ll
-        else:
-            alpha = (w - delta_ll) + beta * delta_ll
-        accept = torch.log(torch.rand(alpha.shape, generator=rng, device=rng.device)) < alpha
-        return where_tree(accept, proposed, particles), torch.where(accept, new_loglik, logliks)
+        """One MH sweep over the particle axis targeting `p(z) p(y|z)^beta`."""
+        particles, logliks, _ = tempered_mh(rng, particles, request, beta, obs_selection, logliks)
+        return particles, logliks
 
     def _init(self, rng: torch.Generator, target: Target[R]):
         """Prior particles with the observations in the trace (beta = 0:
@@ -211,4 +244,4 @@ class TemperedSMC(Generic[R], Pytree):
         return self._collection(particles, lw, log_z), log_z, torch.stack(betas)
 
 
-__all__ = ["TemperedSMC"]
+__all__ = ["TemperedSMC", "retempered_log_alpha", "tempered_mh"]

@@ -1,5 +1,6 @@
 """Where the time goes on the particle, MCMC, combinator, branching, SMC,
-VI, library and adaptive samplers' paths, on one CUDA card.
+VI, library, adaptive samplers' and last six algorithms' paths, on one
+CUDA card.
 
 Traces each configuration that `chip_smoke.py` runs with `torch.profiler`
 (CUPTI device intervals) and prints, for each:
@@ -18,8 +19,9 @@ Traces each configuration that `chip_smoke.py` runs with `torch.profiler`
   step or `extend` on the SMC path, per round for the dense SMC round,
   per estimate or gradient on the VI path, per Gibbs sweep (G1) or filter
   step (SV1) on the library path, per leapfrog step (a NUTS leaf, N1; a
-  ChEES leapfrog step, H1) on the samplers' path), and the largest device
-  items;
+  ChEES leapfrog step, H1) on the samplers' path, per SVGD step, SMC² time
+  step or rejuvenation, or RBPF step on the last six algorithms' path),
+  and the largest device items;
 - K1: the device kernels of the logsumexp kernel in the trace beside the
   launches its wrappers counted in the same run (one kernel per launch),
   and how many device items come from `torch.softmax`.
@@ -272,6 +274,74 @@ def sampler_configurations(rng: torch.Generator, dev: str = "cuda") -> list:
     ]
 
 
+def algorithm_configurations(rng: torch.Generator, dev: str = "cuda") -> list:
+    """(label, steps, fn) of the last six algorithms' configurations, at
+    `chip_smoke.py`'s widths (its `SVGD_CFG`, `SMC2_CFG`, `RBPF_CFG` and
+    `algorithm_models`): SV1 and SV2 one SVGD step at N=4096, D=16 (the
+    per-particle gradient, the Stein direction, the update) in f32 and in
+    bf16; M1 one SMC² time step at 1024 x 1024 without a rejuvenation (every
+    inner filter's advance, the parameter weights' reduction and the
+    gate's read), M1r one rejuvenation at t=12 (the resample and two PMMH
+    moves, each re-running the filters up to t); R1 one RBPF step at K=1M
+    (gate, z-kernel, Kalman update). The state each step starts from is
+    made once, here."""
+    import chip_smoke
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.inference import svgd as sv
+    from genjax_tpu_torch.inference.pmmh import _broadcast_scales
+    from genjax_tpu_torch.inference.rbpf import RaoBlackwellFilter
+    from genjax_tpu_torch.inference.smc import systematic_resample
+    from genjax_tpu_torch.inference.smc2 import SMC2
+    from genjax_tpu_torch.models.logreg import logistic_regression, simulate_logreg_data
+    from genjax_tpu_torch.ops import logsumexp_ess
+
+    m = chip_smoke.algorithm_models(gx, dev)
+    c, s, r = chip_smoke.SVGD_CFG, chip_smoke.SMC2_CFG, chip_smoke.RBPF_CFG
+    X, ys, _ = simulate_logreg_data(torch.Generator(device=dev).manual_seed(5), c["n_data"], c["dim"])
+    traces, x0, unravel = sv._prepare_particles(
+        rng, logistic_regression, (X,), gx.ChoiceMap.kw(ys=ys), gx.Selection.at["w"], c["n_particles"]
+    )
+    grad = sv._grad_batch(gx.Selection.at["w"], traces, (X,), unravel)
+
+    def svgd_step(kernel_dtype):
+        phi, _ = sv.stein_direction(x0, grad(x0), None, kernel_dtype)
+        return x0 + c["step_size"] * phi
+
+    t_mid = s["T"] // 2
+    obs = torch.tensor(chip_smoke.lg_data(s["T"], s["seed"]), device=dev)
+    alg = SMC2(m.lg_step, m.lg_init, prior_sample=lambda g, k: torch.randn(k, generator=g, device=g.device),
+               log_prior=lambda a: gx.normal.logpdf(a, 0.0, 1.0), n_theta=s["n_theta"], n_x=s["n_x"], step_scales=0.25)
+    thetas = alg.prior_sample(rng, s["n_theta"])
+    scales = _broadcast_scales(alg.step_scales, thetas)
+    loglik, z, lw_x = alg._masked_loglik(rng, thetas, obs, t_mid - 1)
+
+    def smc2_step():
+        _, _, incr = alg._advance_all(rng, thetas, z, lw_x, obs[t_mid], t_mid)
+        _, ess = logsumexp_ess(loglik + incr)
+        return bool(ess < alg.theta_ess_threshold * s["n_theta"])
+
+    def smc2_rejuvenation():
+        lse, _ = logsumexp_ess(loglik)
+        state = alg._take_thetas(systematic_resample(rng, loglik, s["n_theta"], lse), thetas, z, lw_x, loglik)
+        for _ in range(alg.n_rejuv):
+            state = alg._pmmh_move(rng, *state, obs, t_mid, scales)[:4]
+        return state
+
+    rb = RaoBlackwellFilter(m.z_step, m.z_init, m.lgss_of_z, r["n_particles"])
+    ys_rb = torch.tensor(chip_smoke.rbpf_data(r["T"], r["data_seed"]), device=dev)[:, None]
+    state = rb.init(rng, ys_rb[0])
+    return [
+        (f"SV1 SVGD step logreg N={c['n_data']} D={c['dim']} f32, {c['n_particles']} particles; one step", 1,
+         lambda: svgd_step(None)),
+        (f"SV2 SVGD step logreg N={c['n_data']} D={c['dim']} bf16, {c['n_particles']} particles; one step", 1,
+         lambda: svgd_step(torch.bfloat16)),
+        (f"M1 SMC2 time step {s['n_theta']} x {s['n_x']} at t={t_mid}, no rejuvenation; one step", 1, smc2_step),
+        (f"M1r SMC2 rejuvenation {s['n_theta']} x {s['n_x']} at t={t_mid} ({alg.n_rejuv} PMMH moves); one "
+         "rejuvenation", 1, smc2_rejuvenation),
+        (f"R1 RBPF step K={r['n_particles']}; one step", 1, lambda: rb.step(rng, *state, ys_rb[1], 1)),
+    ]
+
+
 def configurations():
     """(label, steps, fn) of each configuration, on the card."""
     import genjax_tpu_torch as gx
@@ -351,6 +421,7 @@ def configurations():
         *vi_configurations(rng),
         *library_configurations(rng),
         *sampler_configurations(rng),
+        *algorithm_configurations(rng),
     ]
 
 

@@ -969,3 +969,136 @@ def test_elliptical_loop_reads_match_its_trips_and_the_cpu(cuda):
                 tr, _ = gx.mh(rng, tr, req)
         finals.append(tr.get_choices()["mu"])
     _within_combined_se(*finals)
+
+
+def _algorithm_models(device):
+    import chip_smoke
+    import genjax_tpu_torch as gx
+
+    return chip_smoke.algorithm_models(gx, str(device))
+
+
+def test_svgd_steps_make_no_sync_and_the_stein_direction_matches_float64(cuda):
+    # SVGD at bench.py's width (4096 particles, logreg D=16): 0 syncs over
+    # a run; the Stein direction at the start within 1e-4 (f32) and 5e-2
+    # (bf16 operands, f32 accumulation) of max |phi| of float64 on the CPU.
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.inference import svgd as sv
+    from genjax_tpu_torch.models.logreg import logistic_regression, simulate_logreg_data
+
+    rng = torch.Generator(device=cuda).manual_seed(5)
+    X, ys, _ = simulate_logreg_data(rng, 256, 16)
+    args = (logistic_regression, (X,), gx.ChoiceMap.kw(ys=ys), gx.Selection.at["w"])
+    for kd in (None, torch.bfloat16):
+        syncs, (traces, phi) = _count_syncs(lambda: sv.svgd(rng, *args, n_particles=4096, n_steps=4, kernel_dtype=kd))
+        assert syncs == 0 and _on_card((traces, phi), cuda) and phi.shape == (4,)
+    traces, x0, unravel = sv._prepare_particles(rng, *args, 4096)
+    g0 = sv._grad_batch(args[3], traces, (X,), unravel)(x0)
+    _, h = sv.stein_direction(x0, g0)
+    ref = sv.stein_phi_block(*(v.double().cpu() for v in (x0, x0, g0, h)), 4096)
+    for kd, tol in ((None, 1e-4), (torch.bfloat16, 5e-2)):
+        got = sv.stein_phi_block(x0, x0, g0, h, 4096, kd)
+        assert float((got.double().cpu() - ref).abs().max()) < tol * float(ref.abs().max())
+
+
+def test_bf16_contractions_accumulate_in_f32_on_the_card(cuda):
+    from genjax_tpu_torch.inference.svgd import _mm_f32
+
+    rng = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(512, 64, generator=rng, device=cuda).to(torch.bfloat16)
+    got = _mm_f32(a, a.T)
+    ref = a.double().cpu() @ a.double().cpu().T
+    assert got.dtype == torch.float32 and float((got.double().cpu() - ref).abs().max()) < 1e-4 * float(ref.abs().max())
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_smc2_reads_the_gate_once_per_step_and_reduces_through_k1(cuda):
+    import chip_smoke
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.inference.smc2 import SMC2
+
+    m = _algorithm_models(cuda)
+    ys = torch.tensor(chip_smoke.lg_data(12, 3), device=cuda)
+    alg = SMC2(m.lg_step, m.lg_init, prior_sample=lambda g, k: torch.randn(k, generator=g, device=g.device),
+               log_prior=lambda a: gx.normal.logpdf(a, 0.0, 1.0), n_theta=128, n_x=128, step_scales=0.25)
+    rng = torch.Generator(device=cuda).manual_seed(1)
+    alg.run(rng, ys)
+    before = (fused_logsumexp.launches, fused_logsumexp_ess.launches)
+    syncs, out = _count_syncs(lambda: alg.run(rng, ys))
+    assert syncs == 11 and (fused_logsumexp.launches - before[0], fused_logsumexp_ess.launches - before[1]) == (1, 11)
+    assert _on_card((out["thetas"], out["lml"], out["loglik"]), cuda) and math.isfinite(float(out["lml"]))
+
+
+def test_rbpf_one_sync_per_step_and_the_linear_case_exact_on_the_card(cuda):
+    import chip_smoke
+    from genjax_tpu_torch.inference.rbpf import RaoBlackwellFilter
+
+    m = _algorithm_models(cuda)
+    ys_list = chip_smoke.rbpf_data(20, 2)
+    ys = torch.tensor(ys_list, device=cuda)[:, None]
+    rng = torch.Generator(device=cuda).manual_seed(2)
+    lml, _ = RaoBlackwellFilter(m.z_step, m.z_init, lambda z: m.linear, 100_000).run(rng, ys)
+    exact = chip_smoke.scalar_kalman_lml(chip_smoke.RB_A_X, chip_smoke.RB_Q_X, chip_smoke.RB_R0, ys_list)
+    assert abs(float(lml) - exact) < 1e-5 * max(1.0, abs(exact))
+    rb = RaoBlackwellFilter(m.z_step, m.z_init, m.lgss_of_z, 100_000)
+    before = fused_logsumexp_ess.launches
+    syncs, (lml, (z, mu, P)) = _count_syncs(lambda: rb.run(rng, ys))
+    assert syncs == 19 and fused_logsumexp_ess.launches - before == 19
+    assert _on_card((lml, z, mu, P), cuda) and math.isfinite(float(lml))
+
+
+def test_systematic_resampling_never_picks_a_zero_weight_particle_at_a_million(cuda):
+    # Half the weights -inf, as ABC-SMC's survivors: the card's parallel
+    # cumsum must not hand any of them a slot or a query, in any of the
+    # resamplers (the float64 prefix sum of `smc.prefix_cdf`).
+    from genjax_tpu_torch.inference.smc import RESAMPLERS
+
+    rng = torch.Generator(device=cuda).manual_seed(6)
+    for name, resample in sorted(RESAMPLERS.items()):
+        for _ in range(10):
+            d = torch.rand(1_000_000, generator=rng, device=cuda)
+            lw = torch.where(d <= torch.quantile(d, 0.5), 0.0, -torch.inf)
+            anc = resample(rng, lw, 1_000_000)
+            assert bool(torch.isfinite(lw[anc]).all()), name
+
+
+def test_abc_smc_launches_k1_once_per_generation_and_never_syncs(cuda):
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.inference.abc import ABCSMC
+
+    m = _algorithm_models(cuda)
+    alg = ABCSMC(m.abc_model, (), gx.Selection.at["theta"], summary_fn=lambda tr: tr.get_choices()["y"],
+                 observed_summary=1.0, n_particles=200_000, n_generations=6, n_moves=3)
+    rng = torch.Generator(device=cuda).manual_seed(3)
+    before = fused_logsumexp.launches
+    syncs, out = _count_syncs(lambda: alg.run(rng))
+    assert syncs == 0 and fused_logsumexp.launches - before == 6
+    th = out["traces"].get_choices()["theta"]
+    assert _on_card((th, out["epsilons"]), cuda) and abs(float(th.mean()) - 0.8) < 0.05
+    assert bool((out["distances"] <= out["epsilons"][-1]).all())
+
+
+def test_involutive_mh_and_parallel_tempering_never_sync_on_the_card(cuda):
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.inference.involutive import involutive_mh
+    from genjax_tpu_torch.inference.parallel_tempering import ParallelTempering
+    from genjax_tpu_torch.inference.requests import GaussianDrift
+
+    m = _algorithm_models(cuda)
+    rng = torch.Generator(device=cuda).manual_seed(4)
+    tr, _ = m.lognormal.importance(rng, gx.ChoiceMap.kw(y=2.0), (), n=8192)
+
+    def chain():
+        t = tr
+        for _ in range(5):
+            t, acc = involutive_mh(rng, t, gx.Selection.at["x"], m.aux_scale, m.scale_move)
+        return t, acc
+
+    syncs, (t, acc) = _count_syncs(chain)
+    assert syncs == 0 and _on_card((t, acc), cuda)
+    pt = ParallelTempering(betas=torch.tensor([1.0, 0.5, 0.25, 0.1, 0.02], device=cuda),
+                           request=GaussianDrift(gx.Selection.at["mu"], 0.5), n_moves=2)
+    target = gx.Target(m.bimodal, (), gx.ChoiceMap.kw(y=4.0))
+    syncs, out = _count_syncs(lambda: pt.run(rng, target, 20, collect=lambda t: t.get_choices()["mu"],
+                                             init_constraint=gx.ChoiceMap.kw(mu=2.0)))
+    assert syncs == 0 and _on_card((out.collected, out.perm, out.swap_rates), cuda) and out.collected.shape == (20,)
