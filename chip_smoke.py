@@ -221,6 +221,19 @@ ABC_CFG = dict(n_particles=1_000_000, n_generations=8, n_moves=5, runs=5, reject
 INVOLUTIVE_CFG = dict(n_chains=8_192, n_steps=300, sync_steps=10)
 PT_CFG = dict(n_sweeps=4_000, burn=500, sync_sweeps=10)
 
+# The auxiliary layer (`phase_aux`): C1 checkpoint and resume of the
+# conjugate model of `tests/utils/test_checkpoint_profiling.py:19-23` under
+# `SMCDriver` at 1M particles (its LML is log N(1; 0, 2)); C2 the entry()
+# filter at K=4096, T=20 and the filter at K=1M, T=50 with the default
+# checks, under `checked_mode()` and with `do_typecheck(False)`, and the
+# checks' cost on the three host-bound paths (the K=4096 filter, logreg
+# HMC at C=8192, block-move MH at C=8192), on and off in alternating
+# runs; C3 a profile of one SIR trial at K=1M and its operation counts;
+# C4 time travel over the SIR log weights.
+AUX_CFG = dict(n_particles=1_000_000, filter_pairs=15, big_filter_pairs=5, hmc_pairs=15, block_steps=10, block_pairs=15,
+               wrapper_calls=100_000)
+CONJUGATE_LML = -0.5 * math.log(4 * math.pi) - 0.25  # log N(1; 0, 2)
+
 
 def check(ok: bool, what: str) -> None:
     if not ok:
@@ -2761,6 +2774,275 @@ def phase_algorithms(gx, ops, card: str, dev: str = "cuda") -> None:
           + ", ".join(f"{k} {v:.1f} s" for k, v in sections.items()) + ")")
 
 
+def alternating(fns: dict, pairs: int) -> dict:
+    """Host-clock ms of each of `fns`' calls, run in turn `pairs` times (one
+    untimed round first), each between two device synchronisations: so
+    that a host that drifts during the run moves every mode alike."""
+    times = {name: [] for name in fns}
+    for rnd in range(pairs + 1):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if rnd:
+                times[name].append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
+def phase_aux(gx, ops, card: str, dev: str = "cuda") -> None:
+    """The auxiliary layer on the card: C1 a checkpoint of a 1M-particle
+    SMC state and a bit-identical resume, C2 the public API's checks on
+    the main path (bit-identical results with the checks on, under
+    `checked_mode()` and off, and their cost per step), C3 a profile trace
+    and operation counts of one SIR trial at 1M, C4 time travel over the
+    SIR log weights through K1."""
+    import os
+    import tempfile
+
+    import torch.utils._pytree as pytree
+
+    from genjax_tpu_torch.core import typecheck
+    from genjax_tpu_torch.entry import N_PARTICLES, N_STEPS, entry
+    from genjax_tpu_torch.models.beta_bernoulli import beta_bernoulli
+    from genjax_tpu_torch.models.logreg import BenchConfig, run_hmc_chains
+    from genjax_tpu_torch.models.ssm import run_bootstrap_filter, simulate_ssm_data
+    from genjax_tpu_torch.profiling import PROFILE_ATTEMPTS
+    from genjax_tpu_torch.utils import (
+        annotate, cost_summary, device_memory_stats, profile_trace, restore_checkpoint, save_checkpoint, tag,
+        time_machine,
+    )
+
+    k = AUX_CFG["n_particles"]
+    mib = 2**20
+
+    # C1: checkpoint and resume at K particles.
+    @gx.gen
+    def conjugate():
+        x = gx.normal(0.0, 1.0) @ "x"
+        _ = gx.normal(x, 1.0) @ "y"
+        return x
+
+    target = gx.Target(conjugate, (), gx.ChoiceMap.kw(y=1.0))
+    # Threshold 1: the resample branch runs whatever the ESS is.
+    driver = gx.smc.SMCDriver(n_particles=k, ess_threshold=1.0)
+    coll = driver.init(torch.Generator(device=dev).manual_seed(0), target)
+    state = {"collection": coll, "rng": torch.Generator(device=dev).manual_seed(1)}
+    fresh = {"collection": driver.init(torch.Generator(device=dev).manual_seed(2), target),
+             "rng": torch.Generator(device=dev)}
+    mem_before = device_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "smc_state.pt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(path, state)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        restored = restore_checkpoint(path, fresh)
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+    mem_after = device_memory_stats()
+    live_leaves, restored_leaves = pytree.tree_leaves(state), pytree.tree_leaves(restored)
+    check(len(live_leaves) == len(restored_leaves), "checkpoint: leaf count")
+    for a, b in zip(live_leaves, restored_leaves):
+        if isinstance(a, torch.Tensor):
+            check(b.device == a.device and b.dtype == a.dtype and torch.equal(a, b),
+                  f"checkpoint: a restored leaf differs ({tuple(a.shape)} {a.dtype} on {a.device})")
+        elif isinstance(a, torch.Generator):
+            check(b.device == a.device and torch.equal(a.get_state(), b.get_state()), "checkpoint: generator state")
+        else:
+            check(a == b, f"checkpoint: restored value {b!r} for {a!r}")
+
+    def resume(s):
+        c = driver.rejuvenate(s["rng"], s["collection"], gx.Regenerate(gx.Selection.at["x"]))
+        return driver.maybe_resample(s["rng"], c)
+
+    before = counted(ops)
+    live, back = resume(state), resume(restored)
+    check(dev != "cuda" or counted(ops)[1] - before[1] == 2, "C1: each resume should launch logsumexp_ess once")
+    for a, b in zip(pytree.tree_leaves(live), pytree.tree_leaves(back)):
+        if isinstance(a, torch.Tensor):
+            check(torch.equal(a, b), f"C1: the resumed states differ at a leaf of shape {tuple(a.shape)}")
+    lml_live, lml_back = live.get_log_marginal_likelihood_estimate(), back.get_log_marginal_likelihood_estimate()
+    check(torch.equal(lml_live, lml_back), f"C1: LML {float(lml_live)} live, {float(lml_back)} restored")
+    lw = coll.get_log_weights().double()
+    w = torch.exp(lw - lw.max())
+    se = math.sqrt(float((w * w).mean() / w.mean() ** 2 - 1.0) / k)  # delta method: Var(log Z^) ~ Var(w) / (K E[w]^2)
+    lml = float(lml_live)
+    check(abs(lml - CONJUGATE_LML) < 5 * se, f"C1: LML {lml} not within 5 SE ({se:.2e}) of {CONJUGATE_LML}")
+    k1_err = max(k1_against_plain(ops, coll.get_log_weights())[0], k1_against_plain(ops, live.get_log_weights())[0])
+    x = live.get_particles().get_choices()["x"]
+    check(x.shape == (k,) and bool(torch.isfinite(x).all()), "C1: resumed particles")
+    print(f"C1 checkpoint of SMCDriver state at K={k}: {len(live_leaves)} leaves, every leaf and the generator "
+          f"state bit-identical after restore; resumed (Regenerate x, then resample) from the live and the restored "
+          f"state: every leaf and the LML bit-identical; LML {lml:.6f} (exact {CONJUGATE_LML:.6f}, SE {se:.2e}, "
+          f"{abs(lml - CONJUGATE_LML) / se:.2f} SE off); K1 == plain on the importance and the resampled weights "
+          f"(|err| {k1_err:.2e} of max(1, |ref|), limit 1e-5)")
+    print(f"[{card}] C1 save_checkpoint {save_ms:.2f} ms, restore_checkpoint {restore_ms:.2f} ms (to the card), "
+          f"file {size / mib:.2f} MiB ({size} bytes); device memory before {mem_before}, after {mem_after}")
+    del coll, state, fresh, restored, live, back, lw, w, x
+
+    # C2: the checks on the main path. Each filter runs from one seed in
+    # each mode; the checks draw nothing and launch nothing.
+    modes = {
+        "checks on (default)": lambda fn: fn(),
+        "checked_mode()": lambda fn: _in_checked_mode(gx, fn),
+        "do_typecheck(False)": lambda fn: _typecheck_off(gx, fn),
+    }
+    check(gx.is_typechecked(), "the public API's checks are not on by default")
+    fn_small, _ = entry(dev)
+    _, ys = simulate_ssm_data(torch.Generator().manual_seed(1), BIG_FILTER_STEPS)
+    ys = ys.to(dev)
+    filters = {
+        f"K={N_PARTICLES} T={N_STEPS}": (
+            N_STEPS, AUX_CFG["filter_pairs"], lambda: fn_small(torch.Generator(device=dev).manual_seed(7))[0]),
+        f"K={BIG_FILTER_PARTICLES} T={BIG_FILTER_STEPS}": (
+            BIG_FILTER_STEPS, AUX_CFG["big_filter_pairs"],
+            lambda: run_bootstrap_filter(torch.Generator(device=dev).manual_seed(7), ys, n_particles=BIG_FILTER_PARTICLES)[0]),
+    }
+    for label, (steps, pairs, run) in filters.items():
+        lmls, entries = {}, {}
+        for mode, call in modes.items():
+            e0 = typecheck.entries()
+            lmls[mode] = call(run)
+            entries[mode] = typecheck.entries() - e0
+        ref = lmls["checks on (default)"]
+        check(all(torch.equal(v, ref) for v in lmls.values()),
+              f"C2 filter {label}: LMLs differ between modes {[float(v) for v in lmls.values()]}")
+        check(entries["do_typecheck(False)"] == 0, f"C2 filter {label}: wrappers entered with the checks off")
+        times = alternating({mode: (lambda call=call: call(run)) for mode, call in modes.items()}, pairs)
+        print(f"[{card}] C2 filter {label}: LML {float(ref):.6f} bit-identical in the three modes; "
+              + "; ".join(f"{mode} {statistics.median(t) / steps:.4f} ms/step (median of {pairs}: "
+                          f"{', '.join(f'{x:.2f}' for x in t)} ms/filter)" for mode, t in times.items())
+              + f"; wrapped calls per step {entries['checks on (default)'] / steps:.2f} "
+              f"({entries['checks on (default)']} per filter; {entries['checked_mode()']} under checked_mode())")
+        cost_line(card, f"filter {label} (per step)", steps, times["checks on (default)"],
+                  times["do_typecheck(False)"], entries["checks on (default)"])
+
+    # The cost of one wrapper, alone: a trivial function with the
+    # signature of `generate` (five checked parameters) and of `merge`
+    # (one), wrapped and not, called back to back.
+    def generate_like(self, rng: torch.Generator, constraint: gx.ChoiceMap, args: tuple,
+                      n: int | tuple | None = None, like: gx.Trace | None = None):
+        return rng
+
+    def merge_like(self, other: gx.ChoiceMap):
+        return other
+
+    chm, g = gx.ChoiceMap.kw(y=1.0), torch.Generator(device=dev)
+    for label, fn, call_args in (("generate (5 checked parameters)", generate_like, (None, g, chm, (), 8, None)),
+                                 ("merge (1 checked parameter)", merge_like, (chm, chm))):
+        wrapped = typecheck._wrap(fn, label)
+        check(wrapped is not fn, f"C2: {label} was not wrapped")
+        us = {}
+        for name, f in (("plain", fn), ("wrapped", wrapped)) * 2:
+            t0 = time.perf_counter()
+            for _ in range(AUX_CFG["wrapper_calls"]):
+                f(*call_args)
+            us[name] = 1e6 * (time.perf_counter() - t0) / AUX_CFG["wrapper_calls"]
+        print(f"[{card}] C2 one wrapper, {label}: {us['wrapped'] - us['plain']:.3f} us per call over the plain "
+              f"function's {us['plain']:.3f} us ({AUX_CFG['wrapper_calls']} calls each, the second of two passes)")
+
+    # The checks' cost on the other two host-bound paths: logreg HMC (one
+    # run is S MH steps of L leapfrog steps) and block-move MH through
+    # Switch (one run is `block_steps` MH steps).
+    cfg = BenchConfig()
+    X, yl = cfg.data(dev)
+    rng = torch.Generator(device=dev).manual_seed(40)
+    m = branching_models(gx, dev)
+    block = gx.Regenerate(m.block)
+    chains, _ = m.mixture.importance(rng, gx.ChoiceMap.kw(y=MIX_Y), (), n=BRANCH_CHAINS)
+    paths = {
+        f"logreg HMC C={cfg.n_chains} (per MH step of L={cfg.L})": (
+            cfg.n_steps, AUX_CFG["hmc_pairs"],
+            lambda: run_hmc_chains(rng, X, yl, n_chains=cfg.n_chains, n_steps=cfg.n_steps, eps=cfg.eps, L=cfg.L)),
+        f"block-move MH C={BRANCH_CHAINS} (per MH step)": (
+            AUX_CFG["block_steps"], AUX_CFG["block_pairs"],
+            lambda: gx.run_chains(rng, chains, block, AUX_CFG["block_steps"])),
+    }
+    for label, (steps, pairs, run) in paths.items():
+        e0 = typecheck.entries()
+        run()
+        per_run = typecheck.entries() - e0
+        times = alternating({"on": run, "off": lambda run=run: _typecheck_off(gx, run)}, pairs)
+        cost_line(card, label, steps, times["on"], times["off"], per_run)
+    del chains, m
+
+    # C3: a profile of one SIR trial at K particles, and its counts.
+    alg = gx.ImportanceK(gx.Target(beta_bernoulli, (2.0, 2.0), gx.ChoiceMap.d({"v": True})), k_particles=k)
+
+    @annotate("sir_trial")
+    def trial():
+        col = alg.run_smc(rng)
+        return col.get_log_marginal_likelihood_estimate(), col.sample_particle(rng)
+
+    trial()
+    # The profiler has come back without device intervals for runs that
+    # launched kernels (one trace of 21 in `profiling.trace`, and K1's
+    # kernel alone missing from a trace that held the others): such a
+    # trace is taken again, as `profiling.trace` takes it.
+    attempts = []
+    for _ in range(PROFILE_ATTEMPTS):
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            with profile_trace(tmp) as log_dir:
+                trial()
+                torch.cuda.synchronize()
+            events = json.loads((Path(log_dir) / "trace.json").read_text())["traceEvents"]
+        names = [e.get("name", "") for e in events]
+        kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        attempts.append((len(events), len(kernels), sum("genjax_lse" in n for n in kernels)))
+        if dev != "cuda" or attempts[-1][2]:
+            break
+    check("sir_trial" in names, "C3: the profile trace holds no sir_trial span")
+    check(dev != "cuda" or attempts[-1][2] > 0,
+          f"C3: no profile trace held K1's kernel (genjax_lse): (events, kernels, K1 kernels) {attempts}")
+    costs = cost_summary(trial)
+    check(all(costs[key] > 0 for key in ("flops", "bytes accessed", "transcendentals")), f"C3: cost_summary {costs}")
+    print(f"C3 profile_trace of one SIR trial at K={k} under annotate('sir_trial'): the span present; (events, "
+          f"device kernels, K1 kernels) per trace taken {attempts}; cost_summary: "
+          + ", ".join(f"{key} {v:.4g}" for key, v in costs.items()))
+
+    # C4: time travel over the SIR log weights; both values from K1.
+    def weights_lse():
+        col = alg.run_smc(rng)
+        return ops.logsumexp(tag(col.get_log_weights(), "w"))
+
+    before = counted(ops)[0]
+    dbg = time_machine(weights_lse)()
+    shifted = dbg.jump("w").remix(dbg.current() + 3.0)
+    check(dev != "cuda" or counted(ops)[0] - before == 2, "C4: the two log-sum-exps should be one K1 launch each")
+    a, b = float(dbg.retval), float(shifted.retval)
+    ok, err = close(torch.tensor(b - 3.0), torch.tensor(a))
+    check(ok and shifted.n_frames == 1, f"C4: remix(w + 3) gave {b}, the original {a}")
+    print(f"C4 time_machine over the SIR log weights at K={k}: lse(w) {a:.6f}, jump('w').remix(w + 3) "
+          f"{b:.6f}, shift {b - a:.7f} (|err| {err:.2e}, limit 1e-5 * max(1, |ref|)), both K1 launches")
+
+
+def cost_line(card: str, label: str, steps: int, on: list, off: list, per_run: int) -> None:
+    """Print the checks' cost on one path from alternating runs with the
+    checks on and off (ms per run) and the wrapped calls of one run."""
+    a, b = statistics.median(on), statistics.median(off)
+    print(f"[{card}] C2 cost of the checks, {label}: on {a / steps:.4f} ms/step, off {b / steps:.4f} ms/step "
+          f"(medians of {len(on)} alternating runs; on/off {a / b:.4f}); {per_run / steps:.2f} wrapped calls per "
+          f"step, {1e3 * (a - b) / max(per_run, 1):.3f} us per wrapped call (on - off over the calls); runs on: "
+          f"{', '.join(f'{x:.2f}' for x in on)}; off: {', '.join(f'{x:.2f}' for x in off)} ms")
+
+
+def _in_checked_mode(gx, fn):
+    with gx.checked_mode():
+        return fn()
+
+
+def _typecheck_off(gx, fn):
+    gx.do_typecheck(False)
+    try:
+        return fn()
+    finally:
+        gx.do_typecheck(True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2803,6 +3085,9 @@ def main() -> None:
     # launches no K1, and its counts are read and reported, not required.
     paths["samplers"] = drive(lambda: phase_samplers(gx, card))
     paths["algorithms"] = drive(lambda: phase_algorithms(gx, ops, card))
+    t_aux = time.perf_counter()
+    paths["aux"] = drive(lambda: phase_aux(gx, ops, card))
+    print(f"[{card}] phase_aux wall: {time.perf_counter() - t_aux:.1f} s")
     backward["grad_max_abs_err"] = max(backward["grad_max_abs_err"], *vi_grad_err)
     launches = {name: sum(p[name] for p in paths.values()) for name in ("logsumexp", "logsumexp_ess")}
     for name, count in paths["particle"].items():
@@ -2817,6 +3102,8 @@ def main() -> None:
         check(count > 0, f"the library path (the SV filter, PMMH, particle Gibbs) launched no {name} kernel")
     for name, count in paths["algorithms"].items():
         check(count > 0, f"the last six algorithms' path (SMC², the RBPF, ABC-SMC) launched no {name} kernel")
+    for name, count in paths["aux"].items():
+        check(count > 0, f"the auxiliary layer's path (the resumed SMC state, SIR, time travel) launched no {name} kernel")
     print("kernel launches on the main paths: " + ", ".join(
         f"{name} {count} (" + ", ".join(f"{path} path {p[name]}" for path, p in paths.items()) + ")"
         for name, count in launches.items()))

@@ -17,97 +17,24 @@ adaptation, elliptical slice, `inference/sample.py::sample_posterior`)
 and the checks built on them (diagnostics, PSIS, SBC/Geweke, Kalman,
 MAP/Laplace) sit on the MCMC drivers. This package imports torch and
 numpy, never jax.
+
+The public API is checked at every call, as JAX's is once per trace
+(`core/typecheck.py`, on by default; `do_typecheck(False)` takes the
+wrappers off, `checked_mode()` adds the deeper checks of
+`core/checked.py`). `utils/` holds the time-travel debugger, checkpoints
+(`torch.save` of the state's tensor leaves and generator states),
+`torch.profiler` spans and traces, and operation counts.
 """
 
-from genjax_tpu_torch.combinators import (
-    Dimap,
-    MaskCombinator,
-    RepeatCombinator,
-    Scan,
-    Switch,
-    VectorRequest,
-    Vmap,
-    accumulate,
-    contramap,
-    dimap,
-    iterate,
-    iterate_final,
-    map,
-    mask,
-    masked_iterate,
-    masked_iterate_final,
-    mix,
-    or_else,
-    reduce,
-    repeat,
-    scan,
-    switch,
-    vmap,
-)
-from genjax_tpu_torch.core.choice_map import ChoiceMap, ChoiceMapBuilder, Selection
-from genjax_tpu_torch.core.concepts import IndexRequest
-from genjax_tpu_torch.core.diff import Diff
-from genjax_tpu_torch.core.gfi import GenerativeFunction, Trace, Update
-from genjax_tpu_torch.core.mask import Mask
-from genjax_tpu_torch.core.pytree import Const, Pytree
-from genjax_tpu_torch.core.requests import EmptyRequest, Regenerate, UnsupportedBackwardRequest
-from genjax_tpu_torch.core.typing import per_particle
-from genjax_tpu_torch.distributions import (
-    DiscreteHMM,
-    DiscreteHMMConfiguration,
-    bernoulli,
-    beta,
-    beta_binomial,
-    beta_quotient,
-    binomial,
-    categorical,
-    cauchy,
-    chi,
-    chi2,
-    dirichlet,
-    dirichlet_multinomial,
-    double_sided_maxwell,
-    exp_gamma,
-    exp_half_cauchy,
-    exp_inverse_gamma,
-    exponential,
-    flip,
-    forward_filtering_backward_sampling,
-    gamma,
-    geometric,
-    gumbel,
-    half_cauchy,
-    half_normal,
-    half_student_t,
-    inverse_gamma,
-    inverse_gaussian,
-    kumaraswamy,
-    lambert_w_normal,
-    laplace,
-    log_normal,
-    logit_normal,
-    moyal,
-    multinomial,
-    mv_normal,
-    mv_normal_diag,
-    native_distribution,
-    negative_binomial,
-    non_central_chi2,
-    normal,
-    poisson,
-    power_spherical,
-    skellam,
-    student_t,
-    tfp_distribution,
-    truncated_cauchy,
-    truncated_normal,
-    uniform,
-    von_mises,
-    von_mises_fisher,
-    weibull,
-    zipf,
-)
 from genjax_tpu_torch import adev, inference
+from genjax_tpu_torch.combinators import *  # noqa: F401,F403
+from genjax_tpu_torch.combinators import __all__ as _cmb_all
+from genjax_tpu_torch.core import *  # noqa: F401,F403
+from genjax_tpu_torch.core import __all__ as _core_all
+from genjax_tpu_torch.core.requests import UnsupportedBackwardRequest
+from genjax_tpu_torch.core.typing import per_particle
+from genjax_tpu_torch.distributions import *  # noqa: F401,F403
+from genjax_tpu_torch.distributions import __all__ as _dist_all
 from genjax_tpu_torch.inference import (
     HMC,
     MALA,
@@ -134,129 +61,56 @@ from genjax_tpu_torch.inference import (
     smc,
     vi,
 )
-from genjax_tpu_torch.lang import AddressReuse, MissingAddress, gen
+from genjax_tpu_torch.lang import *  # noqa: F401,F403
+from genjax_tpu_torch.lang import __all__ as _lang_all
 from genjax_tpu_torch.ops import logsumexp
+from genjax_tpu_torch.utils.pretty import pretty
+from genjax_tpu_torch.utils.time_travel import rec, tag, time_machine
 
-__all__ = [
-    "AddressReuse",
+__all__ = [  # noqa: PLE0604
+    *_core_all,
+    *_dist_all,
+    *_lang_all,
+    *_cmb_all,
     "Algorithm",
     "BootstrapFilter",
-    "ChoiceMap",
-    "ChoiceMapBuilder",
-    "Const",
-    "Diff",
-    "Dimap",
-    "DiscreteHMM",
-    "DiscreteHMMConfiguration",
     "EllipticalSlice",
-    "EmptyRequest",
-    "GenerativeFunction",
     "HMC",
     "ImportanceK",
-    "IndexRequest",
     "JumpProposal",
     "MALA",
     "Marginal",
     "NUTS",
-    "Mask",
-    "MaskCombinator",
-    "MissingAddress",
     "ParticleCollection",
-    "Pytree",
-    "Regenerate",
-    "RepeatCombinator",
     "SampleDistribution",
-    "Scan",
-    "Selection",
-    "Switch",
     "Target",
-    "Trace",
     "UnsupportedBackwardRequest",
-    "Update",
-    "VectorRequest",
-    "Vmap",
-    "accumulate",
     "adev",
-    "bernoulli",
-    "beta",
-    "beta_binomial",
-    "beta_quotient",
-    "binomial",
-    "categorical",
-    "cauchy",
-    "chi",
-    "chi2",
-    "contramap",
-    "dimap",
-    "dirichlet",
-    "dirichlet_multinomial",
-    "double_sided_maxwell",
     "enumerative_gibbs",
     "ess",
-    "exp_gamma",
-    "exp_half_cauchy",
-    "exp_inverse_gamma",
-    "exponential",
-    "flip",
-    "forward_filtering_backward_sampling",
-    "gamma",
-    "gen",
-    "geometric",
     "gibbs_chain",
     "gibbs_sweep",
-    "gumbel",
-    "half_cauchy",
-    "half_normal",
-    "half_student_t",
     "inference",
-    "inverse_gamma",
-    "inverse_gaussian",
-    "iterate",
-    "iterate_final",
-    "kumaraswamy",
-    "lambert_w_normal",
-    "laplace",
-    "log_normal",
-    "logit_normal",
     "logsumexp",
-    "map",
     "marginal",
-    "mask",
-    "masked_iterate",
-    "masked_iterate_final",
     "mh",
     "mh_chain",
-    "mix",
-    "moyal",
-    "multinomial",
-    "mv_normal",
-    "mv_normal_diag",
-    "native_distribution",
-    "negative_binomial",
-    "non_central_chi2",
-    "normal",
-    "or_else",
     "per_particle",
-    "poisson",
-    "power_spherical",
-    "reduce",
-    "repeat",
+    "pretty",
+    "rec",
     "requests",
     "reversible_jump",
     "run_chains",
-    "scan",
-    "skellam",
     "smc",
-    "student_t",
-    "switch",
-    "tfp_distribution",
-    "truncated_cauchy",
-    "truncated_normal",
-    "uniform",
+    "tag",
+    "time_machine",
     "vi",
-    "vmap",
-    "von_mises",
-    "von_mises_fisher",
-    "weibull",
-    "zipf",
 ]
+
+# The public API's argument checks, on by default as JAX's are
+# (`core/typecheck.py`; `do_typecheck(False)` takes them off).
+import sys as _sys  # noqa: E402
+
+from genjax_tpu_torch.core import typecheck as _typecheck  # noqa: E402
+
+_typecheck.instrument(_sys.modules[__name__])

@@ -20,10 +20,12 @@ from genjax_tpu_torch.combinators.scan import (
 )
 from genjax_tpu_torch.combinators.switch import Switch, SwitchTrace, switch
 from genjax_tpu_torch.combinators.vmap import Vmap, VmapTrace, vmap
+from genjax_tpu_torch.core.concepts import IndexRequest
 
 __all__ = [
     "Dimap",
     "DimapTrace",
+    "IndexRequest",
     "MaskCombinator",
     "MaskTrace",
     "RepeatCombinator",

@@ -8,7 +8,7 @@ the masked score must be 0. A flag with the particle axis masks particle
 by particle; the wrapped function runs for every particle either way.
 """
 
-from typing import Any, Generic, TypeVar
+from typing import Any, Generic, Sequence, TypeVar
 
 import torch
 import torch.utils._pytree as pytree
@@ -51,7 +51,7 @@ class MaskTrace(Generic[R], Trace[Any]):
     score_batched: int = Pytree.static(default=0)
 
     @staticmethod
-    def build(gen_fn, inner: Trace[R], check, args: tuple, args_batched: tuple) -> "MaskTrace[R]":
+    def build(gen_fn, inner: Trace[R], check, args: tuple, args_batched: Sequence[int]) -> "MaskTrace[R]":
         score = _gate(check, inner.get_score())
         return MaskTrace(gen_fn, inner, args, score, tuple(args_batched), _rank(score))
 

@@ -27,6 +27,7 @@ import torch.utils._pytree as pytree
 
 from genjax_tpu_torch.combinators.dimap import Dimap
 from genjax_tpu_torch.combinators.vmap import _check_indexable
+from genjax_tpu_torch.core.checkify import should_check
 from genjax_tpu_torch.core.choice_map import ChoiceMap, NoneSel, Selection
 from genjax_tpu_torch.core.concepts import (
     EditRequest,
@@ -271,7 +272,7 @@ class VectorRequest(PrimitiveEditRequest):
 class Scan(Generic[Carry, Y], GenerativeFunction[tuple[Carry, Y]]):
     """Scan a kernel of type `(c, a) -> (c, b)` into a generative function
     of type `(c, [a]) -> (c, [b])`. Step `t`'s choices nest under the
-    integer address `t`. With `check_index_edits`, an `IndexRequest` edit
+    integer address `t`. Inside `do_checkify()`, an `IndexRequest` edit
     verifies (with a read of the device) that the carry out of the
     revisited step is what it was.
 
@@ -290,7 +291,6 @@ class Scan(Generic[Carry, Y], GenerativeFunction[tuple[Carry, Y]]):
 
     kernel_gen_fn: GenerativeFunction[tuple[Carry, Y]]
     length: int | None = Pytree.static(default=None)
-    check_index_edits: bool = Pytree.static(default=False)
 
     # -- GFI -------------------------------------------------------------------
 
@@ -453,9 +453,8 @@ class Scan(Generic[Carry, Y], GenerativeFunction[tuple[Carry, Y]]):
 
         Sound only where the kernel's carry-out at step `idx + 1` does not
         depend on its carry-in (the carry is drawn afresh at every step,
-        as a Markov chain's state is). `Scan(..., check_index_edits=True)`
-        verifies it at each edit; use the re-scan `Update` / `Regenerate`
-        where unsure."""
+        as a Markov chain's state is). Inside `do_checkify()` each edit
+        verifies it; use the re-scan `Update` / `Regenerate` where unsure."""
         if not Diff.static_check_no_change(argdiffs):
             raise ValueError("Scan.edit_index edits a step under unchanged arguments")
         length = trace.scan_length
@@ -484,7 +483,7 @@ class Scan(Generic[Carry, Y], GenerativeFunction[tuple[Carry, Y]]):
             )
             new_inner = _put_step(new_inner, next_new, nxt, None if static_idx else has_next)
             w = w + (next_w if static_idx else next_w * has_next)
-            if self.check_index_edits:
+            if should_check():
                 self._check_carry(trace, Diff.tree_primal(next_retdiff)[0], nxt, has_next, depths)
 
         is_last = idx == length - 1

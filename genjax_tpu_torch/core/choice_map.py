@@ -37,14 +37,16 @@ from typing import Any, Iterable
 
 import torch
 
+from genjax_tpu_torch.core import checked
 from genjax_tpu_torch.core.mask import Mask, _and, _not, _or
 from genjax_tpu_torch.core.pytree import Pytree, n_leaves
-from genjax_tpu_torch.core.typing import depth_of, plain
+from genjax_tpu_torch.core.typing import Flag, depth_of, plain
 
 StaticAddressComponent = str
 DynamicAddressComponent = int | slice | torch.Tensor
 AddressComponent = DynamicAddressComponent | StaticAddressComponent
 Address = tuple[AddressComponent, ...] | AddressComponent
+StaticAddress = tuple[StaticAddressComponent, ...] | StaticAddressComponent
 ExtendedAddressComponent = EllipsisType | AddressComponent
 
 _full_slice = slice(None)
@@ -178,10 +180,20 @@ class Selection(Pytree):
         return ComplementSel.build(self)
 
     def __or__(self, other: "Selection") -> "Selection":
+        if checked.is_checked():
+            checked.check_selection(other, "Selection.__or__")
         return OrSel.build(self, other)
 
     def __and__(self, other: "Selection") -> "Selection":
+        if checked.is_checked():
+            checked.check_selection(other, "Selection.__and__")
         return AndSel.build(self, other)
+
+    def filter(self, sample: "ChoiceMap") -> "ChoiceMap":
+        """The part of `sample` that this selection selects."""
+        if checked.is_checked():
+            checked.check_choice_map(sample, "Selection.filter", what="sample")
+        return sample.filter(self)
 
     def extend(self, *addrs: ExtendedAddressComponent) -> "Selection":
         nested = self
@@ -488,7 +500,7 @@ class ChoiceMap(Pytree):
 
     # -- abstract interface ------------------------------------------------
 
-    def filter(self, selection: "Selection | Any") -> "ChoiceMap":
+    def filter(self, selection: "Selection | Flag") -> "ChoiceMap":
         """The part of the map that `selection` selects; a flag instead of
         a selection masks the whole map (`mask`)."""
         raise NotImplementedError
@@ -550,7 +562,7 @@ class ChoiceMap(Pytree):
             nested = Static.build({comp: nested}) if isinstance(comp, str) else Indexed.build(nested, comp)
         return nested
 
-    def mask(self, flag, depth: int | None = None) -> "ChoiceMap":
+    def mask(self, flag: Flag, depth: int | None = None) -> "ChoiceMap":
         """The same map, holding only where `flag` is true. `depth` is the
         number of batch axes the flag carries (read from its mark where
         not given)."""
@@ -620,6 +632,8 @@ class ChoiceMap(Pytree):
     # -- dunders -----------------------------------------------------------
 
     def __or__(self, other: "ChoiceMap") -> "ChoiceMap":
+        if checked.is_checked():
+            checked.check_choice_map(other, "ChoiceMap.__or__", what="other")
         return Or.build(self, other)
 
     def merge(self, other: "ChoiceMap") -> "ChoiceMap":
@@ -715,7 +729,7 @@ class Choice(ChoiceMap):
             return self.v
         return Mask(self.v, True, (self.batched,) * n_leaves(self.v), 0)
 
-    def filter(self, selection) -> ChoiceMap:
+    def filter(self, selection: "Selection | Flag") -> ChoiceMap:
         if not isinstance(selection, Selection):
             return self.mask(selection)
         chosen = selection.check()
@@ -723,7 +737,7 @@ class Choice(ChoiceMap):
             return self if chosen else _empty
         return self.mask(chosen, chosen.dim())
 
-    def mask(self, flag, depth: int | None = None) -> ChoiceMap:
+    def mask(self, flag: Flag, depth: int | None = None) -> ChoiceMap:
         if depth is None:
             depth = depth_of(flag)
             flag = plain(flag)
@@ -808,7 +822,7 @@ class Indexed(ChoiceMap):
     def _fans_out(self) -> bool:
         return isinstance(self.addr, torch.Tensor) and self.addr.dim() == 1
 
-    def filter(self, selection) -> ChoiceMap:
+    def filter(self, selection: "Selection | Flag") -> ChoiceMap:
         return self.c.filter(selection).extend(self.addr)
 
     def get_value(self) -> Any:
@@ -877,7 +891,7 @@ class Static(ChoiceMap):
     def build(children: dict) -> "Static":
         return Static({k: sub for k, sub in children.items() if not sub.static_is_empty()})
 
-    def filter(self, selection) -> ChoiceMap:
+    def filter(self, selection: "Selection | Flag") -> ChoiceMap:
         if not isinstance(selection, Selection):
             return self.mask(selection)
         return Static.build({k: sub.filter(selection(k)) for k, sub in self.children.items()})
@@ -935,7 +949,7 @@ class Switch(ChoiceMap):
             return _empty
         return Switch(idx, branches, depth)
 
-    def filter(self, selection) -> ChoiceMap:
+    def filter(self, selection: "Selection | Flag") -> ChoiceMap:
         return Switch._rebuild(self.idx, [b.filter(selection) for b in self.chms], self.depth)
 
     def static_is_empty(self) -> bool:
@@ -994,7 +1008,7 @@ class Or(ChoiceMap):
             return Switch.build(c2.idx, [c1 | b for b in c2.chms], c2.depth)
         return Or(c1, c2)
 
-    def filter(self, selection) -> ChoiceMap:
+    def filter(self, selection: "Selection | Flag") -> ChoiceMap:
         return self.c1.filter(selection) | self.c2.filter(selection)
 
     def _value(self) -> tuple[Any, int]:
@@ -1028,3 +1042,4 @@ class Or(ChoiceMap):
 _empty = Static({})
 ChoiceMap.builder = _ChoiceMapBuilder(None)
 ChoiceMapBuilder = _ChoiceMapBuilder(_empty)
+SelectionBuilder = Selection.at

@@ -53,6 +53,12 @@ class Diff(Pytree):
     primal: Any
     tangent: ChangeTangent = Pytree.static(default=UnknownChange)
 
+    def get_primal(self) -> Any:
+        return self.primal
+
+    def get_tangent(self) -> ChangeTangent:
+        return self.tangent
+
     @staticmethod
     def unknown_change(v) -> Any:
         """Wrap every leaf of `v` as changed."""
@@ -77,4 +83,4 @@ class Diff(Pytree):
         )
 
 
-__all__ = ["Diff", "NoChange", "UnknownChange"]
+__all__ = ["ChangeTangent", "Diff", "NoChange", "UnknownChange"]

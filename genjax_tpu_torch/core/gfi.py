@@ -145,10 +145,20 @@ class GenerativeFunction(Generic[R], Pytree):
     (torch.Size([8]), torch.Size([8]))
     """
 
-    def __call__(self, *args) -> "GenerativeFunctionClosure[R]":
-        return GenerativeFunctionClosure(self, args)
+    def __call__(self, *args, **kwargs) -> "GenerativeFunctionClosure[R]":
+        return GenerativeFunctionClosure(self, args, kwargs)
 
-    def get_zero_trace(self, *args) -> Trace[R]:
+    def __abstract_call__(self, *args) -> R:
+        """The return value of a call, with every tensor leaf zero."""
+        return self.get_zero_trace(*args).get_retval()
+
+    def handle_kwargs(self) -> "GenerativeFunction[R]":
+        """The function that takes `((args...), {kwargs...})`: here the
+        keyword arguments are dropped (`IgnoreKwargs`); `@gen` functions
+        pass them to their source."""
+        return IgnoreKwargs(self)
+
+    def get_zero_trace(self, *args, **_kwargs) -> Trace[R]:
         """A trace of `self(*args)` with every tensor leaf zero, in the
         shapes and dtypes a call gives: JAX's `empty_trace`, which takes
         them from `eval_shape`. Here one call runs (on the arguments'
@@ -160,13 +170,13 @@ class GenerativeFunction(Generic[R], Pytree):
         return pytree.tree_map(lambda x: torch.zeros_like(x) if isinstance(x, torch.Tensor) else x, tr)
 
     def simulate(
-        self, rng: torch.Generator, args: Arguments, n: int | None = None
+        self, rng: torch.Generator, args: Arguments, n: "int | tuple | None" = None
     ) -> Trace[R]:
         """Sample a trace; with `n`, a batch of `n` traces."""
         raise NotImplementedError
 
     def assess(
-        self, sample: ChoiceMap, args: Arguments, n: int | None = None
+        self, sample: ChoiceMap, args: Arguments, n: "int | tuple | None" = None
     ) -> tuple[Score, R]:
         """The log density of a fully constraining sample. Values recorded
         as per particle give one score per particle; with `n`, the score
@@ -178,7 +188,7 @@ class GenerativeFunction(Generic[R], Pytree):
         rng: torch.Generator,
         constraint: ChoiceMap,
         args: Arguments,
-        n: int | None = None,
+        n: "int | tuple | None" = None,
         like: Trace[R] | None = None,
     ) -> tuple[Trace[R], Weight]:
         """Importance-sample a trace consistent with `constraint`; the weight
@@ -197,14 +207,14 @@ class GenerativeFunction(Generic[R], Pytree):
         rng: torch.Generator,
         constraint: ChoiceMap,
         args: Arguments,
-        n: int | None = None,
+        n: "int | tuple | None" = None,
         like: Trace[R] | None = None,
     ) -> tuple[Trace[R], Weight]:
         """Alias for `generate` (Gen's traditional name)."""
         return self.generate(rng, constraint, args, n, like)
 
     def propose(
-        self, rng: torch.Generator, args: Arguments, n: int | None = None
+        self, rng: torch.Generator, args: Arguments, n: "int | tuple | None" = None
     ) -> tuple[ChoiceMap, Score, R]:
         """Sample and return `(choices, score, retval)`: the shape a
         proposal distribution takes. With `n`, `n` proposals at once.
@@ -386,18 +396,85 @@ class GenerativeFunction(Generic[R], Pytree):
         return contramap(f, info=info)(self)
 
 
+##########################################
+# Kwargs support / addressable closures  #
+##########################################
+
+
+@Pytree.dataclass
+class IgnoreKwargs(GenerativeFunction[R]):
+    """Adapter: the GFI methods take `((args...), {kwargs...})` argument
+    tuples and call the wrapped function with the positional ones."""
+
+    wrapped: GenerativeFunction[R]
+
+    def handle_kwargs(self) -> GenerativeFunction[R]:
+        raise NotImplementedError
+
+    def __abstract_call__(self, *args):
+        (args_tuple, _kwargs) = args
+        return self.wrapped.__abstract_call__(*args_tuple)
+
+    def simulate(self, rng: torch.Generator, args: Arguments, *rest):
+        (args_tuple, _kwargs) = args
+        return self.wrapped.simulate(rng, args_tuple, *rest)
+
+    def assess(self, sample: ChoiceMap, args: Arguments, *rest):
+        (args_tuple, _kwargs) = args
+        return self.wrapped.assess(sample, args_tuple, *rest)
+
+    def generate(self, rng: torch.Generator, constraint: ChoiceMap, args: Arguments, *rest):
+        (args_tuple, _kwargs) = args
+        return self.wrapped.generate(rng, constraint, args_tuple, *rest)
+
+    def project(self, rng: torch.Generator, trace: Trace[R], selection: Selection) -> Weight:
+        return self.wrapped.project(rng, trace, selection)
+
+    def edit(self, rng: torch.Generator, trace: Trace[R], edit_request: EditRequest, argdiffs: Argdiffs, *rest):
+        (argdiffs_tuple, _kwargs) = argdiffs
+        return self.wrapped.edit(rng, trace, edit_request, argdiffs_tuple, *rest)
+
+
 @Pytree.dataclass
 class GenerativeFunctionClosure(Generic[R], Pytree):
-    """The value of `gen_fn(*args)`: addressable via `@ "addr"` inside a
-    generative program."""
+    """The value of `gen_fn(*args, **kwargs)`: addressable via `@ "addr"`
+    inside a generative program, and callable with a generator as a
+    sampler of the return value.
+
+    >>> import torch
+    >>> import genjax_tpu_torch as gx
+    >>> @gx.gen
+    ... def model(mu, scale=1.0):
+    ...     return gx.normal(mu, scale) @ "x"
+    >>> v = model(0.0, scale=0.001)(torch.Generator().manual_seed(0))
+    >>> abs(float(v)) < 0.01
+    True
+    """
 
     gen_fn: GenerativeFunction[R]
     args: tuple
+    kwargs: dict = Pytree.field(default_factory=dict)
+
+    def get_gen_fn_with_args(self) -> tuple[GenerativeFunction[R], tuple]:
+        if self.kwargs:
+            return self.gen_fn.handle_kwargs(), (self.args, self.kwargs)
+        return self.gen_fn, self.args
 
     def __matmul__(self, addr) -> R:
         from genjax_tpu_torch.lang.interop import trace
 
-        return trace(addr, self.gen_fn, self.args)
+        if not self.kwargs:
+            return trace(addr, self.gen_fn, self.args)
+        return trace(addr, self.gen_fn.handle_kwargs(), (self.args, self.kwargs))
+
+    def __call__(self, rng: torch.Generator, *args) -> R:
+        full_args = (*self.args, *args)
+        if self.kwargs:
+            return self.gen_fn.handle_kwargs().simulate(rng, (full_args, self.kwargs)).get_retval()
+        return self.gen_fn.simulate(rng, full_args).get_retval()
+
+    def __abstract_call__(self, *args) -> R:
+        return self.gen_fn.__abstract_call__(*self.args, *args)
 
 
 @Pytree.dataclass

@@ -25,6 +25,7 @@ from typing import Any, Generic, TypeVar
 import torch
 import torch.utils._pytree as pytree
 
+from genjax_tpu_torch.core.checkify import should_check
 from genjax_tpu_torch.core.pytree import Pytree
 from genjax_tpu_torch.core.typing import depth_of, plain
 
@@ -234,8 +235,14 @@ class Mask(Generic[R], Pytree):
     def unmask(self, default: Any = None) -> Any:
         """The value; with `default`, the default where the flag does not
         hold. Without one, the flag is not read (the caller vouches for it,
-        as JAX's unchecked `unmask` does)."""
+        as JAX's unchecked `unmask` does) except inside `do_checkify()`,
+        where a flag that does not hold everywhere raises."""
         if default is None:
+            if should_check() and not bool(torch.all(torch.as_tensor(self.flag))):
+                raise ValueError(
+                    "Mask.unmask() without a default, but the flag (or some entry of a batched flag) "
+                    "is False: the extracted value is not meaningful."
+                )
             return self.value
         leaves, spec = pytree.tree_flatten(self.value)
         defaults = pytree.tree_leaves(default) if pytree.tree_structure(default) == spec else [default] * len(leaves)

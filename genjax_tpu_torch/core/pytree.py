@@ -10,12 +10,14 @@ particle count.
 
 import dataclasses
 import functools
-from typing import Any, TypeVar
+import types
+from typing import Any, Callable, Generic, TypeVar
 
 import torch
 import torch.utils._pytree as pytree
 
 C = TypeVar("C", bound=type)
+R = TypeVar("R")
 
 _STATIC_MARK = "genjax_tpu_torch_static"
 
@@ -46,10 +48,12 @@ class Pytree:
                 return obj
 
             dkls._leafless = not dyn_names
+            # A class may lay out its own node: `_flatten(obj)` and
+            # `_unflatten(children, context)`, static methods.
             pytree.register_pytree_node(
                 dkls,
-                flatten,
-                unflatten,
+                dkls.__dict__["_flatten"].__func__ if "_flatten" in dkls.__dict__ else flatten,
+                dkls.__dict__["_unflatten"].__func__ if "_unflatten" in dkls.__dict__ else unflatten,
                 serialized_type_name=f"{dkls.__module__}.{dkls.__qualname__}",
             )
             return dkls
@@ -64,6 +68,21 @@ class Pytree:
         md = dict(kwargs.pop("metadata", {}) or {})
         md[_STATIC_MARK] = True
         return dataclasses.field(metadata=md, **kwargs)
+
+    @staticmethod
+    def field(**kwargs) -> Any:
+        """A dynamic field (a child of the node)."""
+        return dataclasses.field(**kwargs)
+
+    @staticmethod
+    def partial(*partial_args) -> Callable[[Callable[..., R]], "Closure[R]"]:
+        """Decorator: a `Closure` of the function with `partial_args`
+        applied first."""
+
+        def decorator(fn: Callable[..., R]) -> "Closure[R]":
+            return Closure(partial_args, fn)
+
+        return decorator
 
     def __repr__(self) -> str:
         parts = [f"{f.name}={getattr(self, f.name)!r}" for f in dataclasses.fields(self)]
@@ -128,11 +147,16 @@ def ravel_pytree(tree: Any, batch_shape: tuple = ()):
 
 def n_leaves(tree: Any) -> int:
     """The number of leaves of `tree`; a tensor is one, and a dataclass
-    with only static fields (a generative function) none, with no flatten."""
+    with only static fields (a generative function) none, with no flatten;
+    a class that knows its count says so with its own `_n_leaves(self)`."""
     if isinstance(tree, torch.Tensor):
         return 1
-    if type(tree).__dict__.get("_leafless", False):
+    kls = type(tree)
+    if kls.__dict__.get("_leafless", False):
         return 0
+    count = kls.__dict__.get("_n_leaves")
+    if count is not None:
+        return count(tree)
     return len(pytree.tree_leaves(tree))
 
 
@@ -160,3 +184,122 @@ class Const(Pytree):
     def unwrap_value(v: Any) -> Any:
         """`v`'s value if it is a `Const`, else `v` itself."""
         return v.const if isinstance(v, Const) else v
+
+
+def _same(a: Any, b: Any) -> bool:
+    """Equality of two values held by closure cells or defaults: functions
+    by `_fn_eq`, tensors by identity, anything else by `==` where it
+    answers a bool."""
+    if a is b:
+        return True
+    if isinstance(a, types.FunctionType) and isinstance(b, types.FunctionType):
+        return _fn_eq(a, b)
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor) or type(a) is not type(b):
+        return False
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    try:
+        return bool(a == b)
+    except Exception:
+        return False
+
+
+def _fn_eq(a: Any, b: Any) -> bool:
+    """Two functions made by running the same `def` again: the same code
+    and globals, equal defaults and equal closure cells."""
+    if a is b:
+        return True
+    if not (isinstance(a, types.FunctionType) and isinstance(b, types.FunctionType)):
+        return False
+    if a.__code__ is not b.__code__ or a.__globals__ is not b.__globals__:
+        return False
+    if not (_same(a.__defaults__, b.__defaults__) and _same(a.__kwdefaults__, b.__kwdefaults__)):
+        return False
+    ca, cb = a.__closure__ or (), b.__closure__ or ()
+    try:
+        return len(ca) == len(cb) and all(_same(x.cell_contents, y.cell_contents) for x, y in zip(ca, cb))
+    except ValueError:  # an empty cell
+        return False
+
+
+class _Fn:
+    """A function in a pytree node's context. Running the same `def` again
+    (a model that builds a callee in its body) makes a new function
+    object; the treedef must not change for it, so equality is `_fn_eq`."""
+
+    __slots__ = ("fn",)
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, _Fn) and _fn_eq(self.fn, other.fn)
+
+    def __hash__(self) -> int:
+        return hash(getattr(self.fn, "__code__", self.fn))
+
+    def __repr__(self) -> str:
+        return f"_Fn({self.fn!r})"
+
+
+@dataclasses.dataclass(eq=False, repr=False)
+class Closure(Generic[R], Pytree):
+    """A function with some arguments applied first: the arguments are
+    children of the node (tensors among them are leaves), the function
+    lives in its context (JAX's `Closure`).
+
+    >>> import torch
+    >>> import torch.utils._pytree as pytree
+    >>> from genjax_tpu_torch.core.pytree import Closure
+    >>> clo = Closure((torch.tensor(2.0),), lambda a, b: a * b)
+    >>> float(clo(3.0)), len(pytree.tree_leaves(clo))
+    (6.0, 1)
+    """
+
+    dyn_args: tuple
+    fn: Callable[..., Any]
+
+    def __call__(self, *args, **kwargs):
+        return self.fn(*self.dyn_args, *args, **kwargs)
+
+
+pytree.register_pytree_node(
+    Closure,
+    lambda c: (list(c.dyn_args), _Fn(c.fn)),
+    lambda children, context: Closure(tuple(children), context.fn),
+    serialized_type_name=f"{Closure.__module__}.Closure",
+)
+
+
+def nth(x: Any, idx) -> Any:
+    """Index into every leaf of the pytree `x`.
+
+    >>> import torch
+    >>> from genjax_tpu_torch.core.pytree import nth
+    >>> row = nth({"a": torch.arange(5), "b": torch.zeros(5, 2)}, 2)
+    >>> int(row["a"]), tuple(row["b"].shape)
+    (2, (2,))
+    """
+    return pytree.tree_map(lambda v: v[idx], x)
+
+
+class PythonicPytree(Pytree):
+    """Pytree mixin with `__getitem__` (index every leaf), `__len__` (the
+    leading axis of the first leaf), `+` (concatenate leaf by leaf) and
+    iteration over the leading axis."""
+
+    def __getitem__(self, idx):
+        return nth(self, idx)
+
+    def __len__(self) -> int:
+        leaves = pytree.tree_leaves(self)
+        if not leaves:
+            return 0
+        return len(leaves[0])
+
+    def __add__(self, other):
+        return pytree.tree_map(lambda a, b: torch.cat([a, b]), self, other)
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]

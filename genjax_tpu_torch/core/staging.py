@@ -1,5 +1,5 @@
 """Flags and selections between pytrees: `FlagOp`, `tree_choose`,
-`multi_switch` and `where_tree`.
+`multi_switch` and `where_tree`; `empty_trace`.
 
 Counterpart of part of `genjax_tpu/core/staging.py`. JAX's `lax.switch`
 runs one branch into zero templates of the others; under a batch of
@@ -154,3 +154,9 @@ def where_tree(flag: torch.Tensor, on_true, on_false):
         return a
 
     return pytree.tree_unflatten([select(a, b, t) for a, b, t in zip(a_leaves, b_leaves, bits)], spec)
+
+
+def empty_trace(gen_fn, args: tuple):
+    """A trace of `gen_fn(*args)` with every tensor leaf zero
+    (`GenerativeFunction.get_zero_trace`)."""
+    return gen_fn.get_zero_trace(*args)

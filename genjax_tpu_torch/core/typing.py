@@ -7,12 +7,33 @@ torch operation accepts them (no host-to-device copy per site); values
 that must be tensors are made on an explicit device.
 """
 
-from typing import Any, TypeAlias
+import sys
+from collections.abc import Callable, Generator, Iterable, Sequence  # noqa: F401 (re-export)
+from types import EllipsisType  # noqa: F401 (re-export)
+from typing import Annotated, Any, Final, Generic, ParamSpec, TypeAlias, TypeVar  # noqa: F401 (re-export)
 
+if sys.version_info >= (3, 11):
+    from typing import Self  # noqa: F401 (re-export)
+else:  # pragma: no cover
+    Self = TypeVar("Self")
+
+import numpy as np
 import torch
 from torch._C import DisableTorchFunctionSubclass
 
+# JAX's aliases: an array is a tensor, a key a generator.
+Array: TypeAlias = torch.Tensor
+ArrayLike: TypeAlias = torch.Tensor | np.ndarray | int | float | bool
+PRNGKey: TypeAlias = torch.Generator
+IntArray: TypeAlias = int | torch.Tensor
 FloatArray: TypeAlias = float | torch.Tensor
+BoolArray: TypeAlias = bool | torch.Tensor
+#: A Python bool (known when the program runs) or a boolean tensor.
+Flag: TypeAlias = bool | torch.Tensor
+ScalarFlag: TypeAlias = bool | torch.Tensor
+InAxes: TypeAlias = int | None | Sequence[Any]
+
+R = TypeVar("R")
 
 DEFAULT_DTYPE = torch.float32
 
@@ -193,3 +214,72 @@ def sample_shape(n: "int | tuple | None", *params: Any) -> torch.Size:
     if n is None:
         return base
     return torch.Size((n, *base)) if isinstance(n, int) else torch.Size((*n, *base))
+
+
+class _IsValidator:
+    """A predicate usable as `Annotated` metadata (JAX's stand-in for
+    `beartype.vale.Is`), composable with `&`, `|` and `~`."""
+
+    def __init__(self, predicate: Callable[[Any], bool]):
+        self.predicate = predicate
+
+    def __call__(self, value: Any) -> bool:
+        return bool(self.predicate(value))
+
+    def __and__(self, other: "_IsValidator") -> "_IsValidator":
+        return _IsValidator(lambda v: self(v) and other(v))
+
+    def __or__(self, other: "_IsValidator") -> "_IsValidator":
+        return _IsValidator(lambda v: self(v) or other(v))
+
+    def __invert__(self) -> "_IsValidator":
+        return _IsValidator(lambda v: not self(v))
+
+
+class Is:
+    """`Is[predicate]` builds an `Annotated` validator.
+
+    >>> from genjax_tpu_torch.core.typing import ScalarShaped
+    >>> import torch
+    >>> ScalarShaped(torch.tensor(1.0)), ScalarShaped(torch.zeros(2))
+    (True, False)
+    """
+
+    def __class_getitem__(cls, predicate) -> _IsValidator:
+        return _IsValidator(predicate)
+
+
+#: The annotated value is scalar-shaped.
+ScalarShaped = Is[lambda arr: torch.as_tensor(arr).shape == ()]
+ScalarInt: TypeAlias = Annotated[IntArray, ScalarShaped]
+
+
+def nobeartype(fn: Callable) -> Callable:
+    """Exempt `fn` from the public-API type checks (`core/typecheck.py`
+    skips a function with this mark)."""
+    fn.__gx_typechecked__ = True
+    return fn
+
+
+def static_check_is_concrete(x: Any) -> bool:
+    """True if `x` is no `torch.func` transform's wrapped tensor (JAX: no
+    tracer): its value can be read."""
+    if not isinstance(x, torch.Tensor):
+        return True
+    import torch._C._functorch as functorch
+
+    return not functorch.is_functorch_wrapped_tensor(x)
+
+
+def static_check_is_array(x: Any) -> bool:
+    return isinstance(x, (torch.Tensor, np.ndarray, int, float, bool))
+
+
+def static_check_supports_grad(v: Any) -> bool:
+    """True if `v` is a floating-point value (a differentiable leaf)."""
+    return torch.as_tensor(v).is_floating_point()
+
+
+def static_check_shape_dtype_equivalence(vs: list) -> bool:
+    """True if every tensor in `vs` shares one (shape, dtype)."""
+    return len({(tuple(v.shape), v.dtype) for v in vs}) == 1

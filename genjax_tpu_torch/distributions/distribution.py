@@ -29,6 +29,7 @@ from typing import Any, Callable, Generic, TypeVar
 import torch
 from torch._C import DisableTorchFunctionSubclass
 
+from genjax_tpu_torch.core import checked
 from genjax_tpu_torch.core.choice_map import ChoiceMap, Selection
 from genjax_tpu_torch.core.concepts import NotSupportedEditRequest, Score, Weight
 from genjax_tpu_torch.core.diff import Diff
@@ -36,7 +37,7 @@ from genjax_tpu_torch.core.gfi import GenerativeFunction, GenerativeFunctionClos
 from genjax_tpu_torch.core.mask import Mask, flag_on
 from genjax_tpu_torch.core.pytree import Const, Pytree, n_leaves
 from genjax_tpu_torch.core.requests import EmptyRequest, Regenerate
-from genjax_tpu_torch.core.typing import as_value, batch_dims, device_of, mark, plain
+from genjax_tpu_torch.core.typing import as_value, batch_dims, device_of, mark, nobeartype, plain
 
 R = TypeVar("R")
 
@@ -152,19 +153,24 @@ class Distribution(Generic[R], GenerativeFunction[R]):
         `prod(sample_shape)` independent draws (`SampleShaped`)."""
         return self.closure(self.bind(args, kwargs), sample_shape)
 
+    # `bind` and `closure` serve `__call__`, whose `*args` and `**kwargs`
+    # are a tuple and a dict whatever the caller passed: the public API's
+    # checks (`core/typecheck.py`) would cost every site and catch nothing.
+    @nobeartype
     def bind(self, args: tuple, kwargs: dict) -> tuple:
         """The parameters as the flat positional tuple a trace stores."""
         if kwargs:
             raise TypeError(f"{type(self).__name__} takes its parameters by position")
         return args
 
+    @nobeartype
     def closure(self, args: tuple, sample_shape: Any = ()) -> GenerativeFunctionClosure[R]:
         shape = Const.unwrap_value(sample_shape)
         shape = (shape,) if isinstance(shape, int) else tuple(shape)
         return GenerativeFunctionClosure(SampleShaped(self, shape) if shape else self, args)
 
     def random_weighted(
-        self, rng: torch.Generator, *args, n: int | None = None
+        self, rng: torch.Generator, *args, n: "int | tuple | None" = None
     ) -> tuple[Score, R]:
         """Sample a value and return (elementwise density estimate, value)."""
         raise NotImplementedError
@@ -193,7 +199,10 @@ class Distribution(Generic[R], GenerativeFunction[R]):
         score = site_score(density, value, batched, args, self.param_event_extra)
         return DistributionTrace(self, tuple(plain(a) for a in args), value, score, int(batched))
 
-    def simulate(self, rng, args, n=None) -> Trace[R]:
+    def simulate(self, rng: torch.Generator, args: tuple, n: "int | tuple | None" = None) -> Trace[R]:
+        if checked.is_checked():
+            checked.check_key(rng, f"{type(self).__name__}.simulate")
+            checked.check_args(args, f"{type(self).__name__}.simulate")
         w, v = self._draw(rng, args, n)
         return self._trace(args, v, w, len(n) if isinstance(n, tuple) else n is not None)
 
@@ -204,9 +213,20 @@ class Distribution(Generic[R], GenerativeFunction[R]):
             args = tuple(mark(a, b) if b else a for a, b in zip(args, like.args_record()))
         return self._draw(rng, args, n)
 
-    def generate(self, rng, constraint, args, n=None, like=None) -> tuple[Trace[R], Weight]:
+    def generate(
+        self,
+        rng: torch.Generator,
+        constraint: ChoiceMap,
+        args: tuple,
+        n: "int | tuple | None" = None,
+        like: "DistributionTrace | None" = None,
+    ) -> tuple[Trace[R], Weight]:
         """With `like`, the parameters that carry the particle axis are those
         of `like`'s (plain tensors here are marked for the draw)."""
+        if checked.is_checked():
+            checked.check_key(rng, f"{type(self).__name__}.generate")
+            checked.check_choice_map(constraint, f"{type(self).__name__}.generate")
+            checked.check_args(args, f"{type(self).__name__}.generate")
         held = constraint.get_value()
         depth = len(n) if isinstance(n, tuple) else n is not None
         if held is None:
@@ -255,7 +275,7 @@ class Distribution(Generic[R], GenerativeFunction[R]):
 
     # -- edits -------------------------------------------------------------------
 
-    def edit(self, rng, trace, edit_request, argdiffs, n: int | None = None):
+    def edit(self, rng, trace, edit_request, argdiffs, n: "int | tuple | None" = None):
         """`n` is the particle count of the trace that holds this site."""
         match edit_request:
             case Update(constraint):
@@ -342,7 +362,7 @@ class Distribution(Generic[R], GenerativeFunction[R]):
 class ExactDensity(Generic[R], Distribution[R]):
     """Distributions with exact `sample` / `logpdf` implementations."""
 
-    def sample(self, rng: torch.Generator, *args, n: int | None = None) -> R:
+    def sample(self, rng: torch.Generator, *args, n: "int | tuple | None" = None) -> R:
         raise NotImplementedError
 
     def logpdf(self, v: R, *args) -> Score:
@@ -399,6 +419,7 @@ def exact_density(
     sig = signature if signature is not None else _signature(sample, 1)
 
     class _Density(ExactDensity):
+        @nobeartype
         def bind(self, args: tuple, kwargs: dict) -> tuple:
             if not kwargs:
                 return args

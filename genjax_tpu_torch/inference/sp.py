@@ -14,6 +14,7 @@ from typing import Any, Callable, Generic, TypeVar
 import torch
 import torch.utils._pytree as pytree
 
+from genjax_tpu_torch.core import checked
 from genjax_tpu_torch.core.choice_map import Choice, ChoiceMap, Selection
 from genjax_tpu_torch.core.concepts import Score, Weight
 from genjax_tpu_torch.core.gfi import GenerativeFunction, Trace
@@ -48,6 +49,9 @@ class Target(Generic[R], Pytree):
     constraint: ChoiceMap
 
     def __post_init__(self):
+        if checked.is_checked():
+            checked.check_args(self.args, "Target")
+            checked.check_choice_map(self.constraint, "Target", what="constraint")
         if isinstance(self.p, Marginal):
             raise TypeError(
                 "A Target's model may not itself be a Marginal; marginalize inside the model instead."

@@ -20,6 +20,12 @@ So does `generate` given `like=`, a trace of an earlier call with the same
 record: a filter's step model, like the body of JAX's `scan`, is traced
 with the marks once and then reuses that record at every later step.
 
+The source is a `Closure`, as in JAX: `partial_apply` fixes leading
+arguments, which become leaves of the generative function (shared by every
+particle: a trace records its generative function's leaves as carrying no
+batch axis), and a `@gen` method binds its instance so (`__get__`).
+`handle_kwargs` gives the function that takes `((args...), {kwargs...})`.
+
 The edits are dense: every site is visited and re-scored. The site-graph
 analysis that makes them incremental (`_EditPlan` in JAX) comes later.
 """
@@ -29,11 +35,12 @@ from typing import Any, Callable, Generic, TypeVar
 import torch
 import torch.utils._pytree as pytree
 
+from genjax_tpu_torch.core import checked
 from genjax_tpu_torch.core.choice_map import ChoiceMap, Selection
-from genjax_tpu_torch.core.concepts import NotSupportedEditRequest, Score, Weight
+from genjax_tpu_torch.core.concepts import Argdiffs, EditRequest, NotSupportedEditRequest, Score, Weight
 from genjax_tpu_torch.core.diff import Diff
 from genjax_tpu_torch.core.gfi import GenerativeFunction, Trace, Update
-from genjax_tpu_torch.core.pytree import Pytree, n_leaves
+from genjax_tpu_torch.core.pytree import Closure, Pytree, _Fn, n_leaves
 from genjax_tpu_torch.core.requests import EmptyRequest, Regenerate
 from genjax_tpu_torch.core.typing import batch_dims, depth_of, device_of, mark, plain
 from genjax_tpu_torch.distributions.distribution import Distribution, DistributionTrace, _drop
@@ -293,24 +300,91 @@ class RegenerateHandler(EditHandler):
 @Pytree.dataclass
 class StaticGenerativeFunction(Generic[R], GenerativeFunction[R]):
     """A generative function whose source is a Python program over tensors
-    using `dist(args) @ "addr"` addressing syntax."""
+    using `dist(args) @ "addr"` addressing syntax.
 
-    source: Callable[..., Any] = Pytree.static()
+    >>> import torch
+    >>> import genjax_tpu_torch as gx
+    >>> @gx.gen
+    ... def model(mu, scale=1.0):
+    ...     return gx.normal(mu, scale) @ "x"
+    >>> fixed = model.partial_apply(torch.tensor(2.0))
+    >>> tr = fixed.simulate(torch.Generator().manual_seed(0), ())
+    >>> tr.get_args(), fixed.partial_args()
+    ((), (tensor(2.),))
+    >>> kw = model.handle_kwargs()
+    >>> score, _ = kw.assess(gx.ChoiceMap.kw(x=0.0), ((0.0,), {"scale": 2.0}))
+    >>> round(float(score), 4)
+    -1.6121
+    """
+
+    source: Closure
+
+    # The node: the source's arguments are its children and the source's
+    # function its context, so a function with no partial arguments is a
+    # node without children, as cheap to flatten as a static source.
+    @staticmethod
+    def _flatten(gen_fn: "StaticGenerativeFunction"):
+        return list(gen_fn.source.dyn_args), _Fn(gen_fn.source.fn)
+
+    @staticmethod
+    def _unflatten(children, context: _Fn) -> "StaticGenerativeFunction":
+        obj = object.__new__(StaticGenerativeFunction)
+        object.__setattr__(obj, "source", Closure(tuple(children), context.fn))
+        return obj
+
+    def _n_leaves(self) -> int:
+        dyn = self.source.dyn_args
+        return sum(n_leaves(a) for a in dyn) if dyn else 0
+
+    def __get__(self, instance, _klass) -> "StaticGenerativeFunction[R]":
+        return self.partial_apply(instance) if instance else self
+
+    def __post_init__(self):
+        wrapped = self.source.fn
+        for k in ("__module__", "__name__", "__qualname__", "__doc__"):
+            v = getattr(wrapped, k, None)
+            if v is not None:
+                object.__setattr__(self, k, v)
+        object.__setattr__(self, "__wrapped__", wrapped)
+
+    def handle_kwargs(self) -> "StaticGenerativeFunction[R]":
+        """The same program taking `((args...), {kwargs...})`."""
+
+        @Pytree.partial()
+        def kwarged_source(args, kwargs):
+            return self.source(*args, **kwargs)
+
+        return StaticGenerativeFunction(kwarged_source)
+
+    def partial_args(self) -> tuple:
+        return self.source.dyn_args
+
+    def partial_apply(self, *args) -> "StaticGenerativeFunction[R]":
+        """The same program with `args` applied first."""
+        return gen(Closure(self.source.dyn_args + args, self.source.fn))
 
     def _trace(self, args, retval, subtraces) -> StaticTrace[R]:
         args, args_batched = _recorded(args)
         retval, retval_batched = _recorded(retval)
         return StaticTrace(self, args, retval, subtraces, args_batched, retval_batched)
 
-    def simulate(self, rng, args, n=None) -> StaticTrace[R]:
+    def simulate(self, rng: torch.Generator, args: tuple, n: "int | tuple | None" = None) -> StaticTrace[R]:
+        if checked.is_checked():
+            checked.check_key(rng, "simulate")
+            checked.check_args(args, "simulate")
         handler = SimulateHandler(rng, n)
         with handler_context(handler):
             retval = self.source(*args)
         return self._trace(args, retval, handler.subtraces)
 
-    def assess(self, sample, args, n=None, marked: bool = False) -> tuple[Score, R]:
+    def assess(
+        self, sample: ChoiceMap, args: tuple, n: "int | tuple | None" = None, marked: bool = False
+    ) -> tuple[Score, R]:
         """With `marked` (a call from an enclosing body), the arguments may
         carry batch marks and the return value keeps its own."""
+        if checked.is_checked():
+            checked.check_choice_map(sample, "assess", "sample")
+            checked.check_args(args, "assess")
         handler = AssessHandler(sample, n)
         with handler_context(handler):
             retval = self.source(*args)
@@ -321,9 +395,20 @@ class StaticGenerativeFunction(Generic[R], GenerativeFunction[R]):
             score = score.expand(batch_dims(n))
         return score, retval if marked or n is None else _recorded(retval)[0]
 
-    def generate(self, rng, constraint, args, n=None, like=None) -> tuple[StaticTrace[R], Weight]:
+    def generate(
+        self,
+        rng: torch.Generator,
+        constraint: ChoiceMap,
+        args: tuple,
+        n: "int | tuple | None" = None,
+        like: "StaticTrace | None" = None,
+    ) -> tuple[StaticTrace[R], Weight]:
         """With `like`, the body runs on plain tensors (marks on `args` are
         taken off) and each site generates like `like`'s."""
+        if checked.is_checked():
+            checked.check_key(rng, "generate")
+            checked.check_choice_map(constraint, "generate")
+            checked.check_args(args, "generate")
         if like is not None:
             args = _recorded(args)[0]
         handler = GenerateHandler(rng, constraint, n, like)
@@ -334,7 +419,7 @@ class StaticGenerativeFunction(Generic[R], GenerativeFunction[R]):
         new = StaticTrace(self, args, retval, handler.subtraces, like.args_batched, like.retval_batched)
         return new, handler.weight
 
-    def project(self, rng, trace: StaticTrace[R], selection: Selection) -> Weight:
+    def project(self, rng: torch.Generator, trace: StaticTrace[R], selection: Selection) -> Weight:
         weight = torch.zeros((), device=rng.device)
         for addr, subtrace in trace.subtraces.items():
             weight = weight + subtrace.project(rng, selection(addr))
@@ -363,9 +448,20 @@ class StaticGenerativeFunction(Generic[R], GenerativeFunction[R]):
         handler = RegenerateHandler(rng, trace, selection, trace.particle_count() if n is None else n)
         return self._edited(trace, Diff.tree_primal(argdiffs), handler)
 
-    def edit(self, rng, trace, edit_request, argdiffs, n=None):
+    def edit(
+        self,
+        rng: torch.Generator,
+        trace: StaticTrace[R],
+        edit_request: EditRequest,
+        argdiffs: Argdiffs,
+        n: "int | tuple | None" = None,
+    ):
         """`n` is the batch of an enclosing trace; without it, the particle
         count is read from this trace's own record."""
+        if checked.is_checked():
+            checked.check_key(rng, "edit")
+            checked.check_request(edit_request, "edit")
+            checked.check_args(argdiffs, "edit (argdiffs)")
         match edit_request:
             case Update(constraint):
                 return self.edit_update(rng, trace, constraint, argdiffs)
@@ -381,7 +477,9 @@ class StaticGenerativeFunction(Generic[R], GenerativeFunction[R]):
 def gen(f: Callable[..., Any]) -> StaticGenerativeFunction[Any]:
     """Decorator turning a Python function that uses `dist(args) @ "addr"`
     into a `StaticGenerativeFunction`."""
-    return StaticGenerativeFunction(f)
+    if isinstance(f, Closure):
+        return StaticGenerativeFunction(f)
+    return gen(Closure((), f))
 
 
 __all__ = [

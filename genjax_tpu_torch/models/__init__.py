@@ -46,6 +46,7 @@ __all__ = [
     "run_is_mh",
     "run_mala_chains",
     "run_sir",
+    "run_sv_pmmh",
     "seasonal",
     "simulate_gmm_data",
     "simulate_ssm_data",

@@ -441,7 +441,9 @@ def test_scan_index_request(step, particles):
 
 def test_scan_index_request_carry_check_behind_its_flag():
     """A kernel whose carry-out depends on its carry-in is no case for the
-    single-step edit: the check, when asked for, says so."""
+    single-step edit: the check, run inside `do_checkify()` as JAX runs
+    it, says so."""
+    from genjax_tpu_torch.checkify import do_checkify
 
     @tgx.gen
     def drift(c, _):
@@ -449,17 +451,19 @@ def test_scan_index_request_carry_check_behind_its_flag():
         return c + z, z
 
     rng = _rng()
-    tr = drift.scan(n=T).simulate(rng, (0.0, None), n=K)
+    scan = tgx.Scan(drift, T)
+    tr = scan.simulate(rng, (0.0, None), n=K)
     request = tgx.IndexRequest(1, tgx.Update(TC.kw(z=torch.tensor(3.0))))
     tr.edit(rng, request)  # unchecked by default, as JAX is outside checkify
-    checked = tgx.Scan(drift, T, check_index_edits=True)
-    with pytest.raises(ValueError, match="carry-out changed"):
-        checked.edit(rng, tr, request, tgx.Diff.no_change(tr.get_args()))
+    with do_checkify():
+        with pytest.raises(ValueError, match="carry-out changed"):
+            scan.edit(rng, tr, request, tgx.Diff.no_change(tr.get_args()))
     # A Markov kernel (the carry is the fresh draw) passes the check.
-    ok = tgx.Scan(t_step, T, check_index_edits=True)
+    ok = tgx.Scan(t_step, T)
     c0, xs, _, _ = _scan_inputs()
     tr = ok.simulate(rng, (float(c0), _t(xs)), n=K)
-    ok.edit(rng, tr, request, tgx.Diff.no_change(tr.get_args()))
+    with do_checkify():
+        ok.edit(rng, tr, request, tgx.Diff.no_change(tr.get_args()))
 
 
 def test_scan_regenerate_rescan_and_vector_request():
