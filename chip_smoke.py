@@ -81,8 +81,13 @@ sync and one `logsumexp_ess` launch per step and K1 held against its
 plain twin on their own weights; ABC-SMC at 1,000,000 particles (one K1
 launch per generation) and rejection ABC against the conjugate posterior;
 involutive MH at 8192 chains and the five-replica tempering ladder, 0
-syncs per step or sweep. Every phase raises on failure; nothing is
-caught.
+syncs per step or sweep. Then the auxiliary layer (`phase_aux`) and the
+incremental edits (`phase_incremental`): MH-within-Gibbs on eight schools
+at 8192 chains under the edit plan (the analysis run once per model, 0
+fallbacks, 0 syncs per sweep, the weights equal to the dense plan's)
+against the quadrature oracle, timed against the dense fallback plan;
+resample-move at a million particles with the LML through K1; `SafeHMC`.
+Every phase raises on failure; nothing is caught.
 
 Run from the repository root, with one CUDA card visible:
 
@@ -92,6 +97,7 @@ The last two lines of standard output are one JSON object with the
 kernels' launch counts, errors and times, and one with the device.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -233,6 +239,15 @@ PT_CFG = dict(n_sweeps=4_000, burn=500, sync_sweeps=10)
 AUX_CFG = dict(n_particles=1_000_000, filter_pairs=15, big_filter_pairs=5, hmc_pairs=15, block_steps=10, block_pairs=15,
                wrapper_calls=100_000)
 CONJUGATE_LML = -0.5 * math.log(4 * math.pi) - 0.25  # log N(1; 0, 2)
+# The incremental edits' path (`phase_incremental`): I1 MH-within-Gibbs on
+# eight schools (`models/hierarchical.py`) at 8192 chains, prior-proposal
+# `Regenerate` moves through `inference/mcmc.py::gibbs_chain` under the
+# edit plan (burn-in and collected sweeps; the plan against the dense
+# fallback plan in alternating timed runs); I2 resample-move at a million
+# particles (ImportanceK, the LML through K1, a systematic resample, one
+# Gibbs sweep), 10 runs; I3 `SafeHMC` on the centered model.
+INCREMENTAL_CFG = dict(chains=8_192, burn=100, sweeps=100, sync_sweeps=5, timed_pairs=4, timed_sweeps=20,
+                       particles=1_000_000, rm_runs=10, hmc_eps=0.01, hmc_L=5, hmc_steps=10, p2_pairs=8)
 
 
 def check(ok: bool, what: str) -> None:
@@ -2116,17 +2131,7 @@ def phase_samplers(gx, card: str, dev: str = "cuda") -> None:
     leapfrogs = chees.chees_stats["leapfrog_total"] - leap0
     check(theta.shape == (n_chains, n_samples, 8) and bool(torch.isfinite(theta).all()), "H1: theta draws")
     mu, tau = out.samples["mu"].double().cpu(), torch.exp(out.samples["log_tau"].double().cpu())
-    n_eff = n_chains * n_samples / 20.0
-    report = []
-    for got, mean, var, label in ((mu.mean(), oracle.mu_mean, oracle.mu_var, "mu"),
-                                  (tau.mean(), oracle.tau_mean, oracle.tau_var, "tau")):
-        se = math.sqrt(float(var) / n_eff)
-        gap = abs(float(got) - float(mean))
-        check(gap < 6 * se + 0.05, f"H1 {label}: {float(got)} against the oracle's {float(mean)} (6 SE {6 * se})")
-        report.append(f"{label} {float(got):.3f} (oracle {float(mean):.3f}, bound {6 * se + 0.05:.3f})")
-    th_err = (theta.double().cpu().mean((0, 1)) - oracle.theta_mean.double()).abs()
-    th_bound = 6 * (oracle.theta_var.double() / n_eff).sqrt() + 0.05
-    check(bool((th_err < th_bound).all()), f"H1 theta means off: {th_err.tolist()} against {th_bound.tolist()}")
+    report = schools_oracle_checks(oracle, mu, tau, theta.double().cpu(), "H1")
     rhat = max(float(v.max()) for v in torch.utils._pytree.tree_leaves(out.rhat))
     check(rhat < 1.1, f"H1: largest R-hat {rhat}")
     traces, _ = hierarchical.eight_schools.importance(
@@ -2144,8 +2149,8 @@ def phase_samplers(gx, card: str, dev: str = "cuda") -> None:
           f"{leapfrogs} leapfrog steps ({leapfrogs / steps:.2f} per ChEES step); adapted eps "
           f"{float(out.tuned.eps):.4f}, T {float(out.tuned.trajectory_length):.4f}, accept rate "
           f"{float(out.tuned.accept_rate):.3f}")
-    print(f"H1 against the quadrature oracle (6 SE + 0.05, n_eff = C S / 20): {'; '.join(report)}; every theta "
-          f"within its bound (largest gap {float(th_err.max()):.3f}); largest R-hat {rhat:.4f} (limit 1.1); "
+    print(f"H1 against the quadrature oracle (6 SE + 0.05, n_eff = C S / 20): {report}; largest R-hat {rhat:.4f} "
+          f"(limit 1.1); "
           f"syncs per ChEES step: {warm_syncs / SCHOOLS_SYNC_STEPS:.0f} in the warmup, "
           f"{run_syncs / SCHOOLS_SYNC_STEPS:.0f} in the sampling (over {SCHOOLS_SYNC_STEPS} steps each)")
     print_profile(card, "H1 ChEES sampling steps", profiling.trace(profiles["H1"][2], profiles["H1"][1]))
@@ -3020,6 +3025,273 @@ def phase_aux(gx, ops, card: str, dev: str = "cuda") -> None:
           f"{b:.6f}, shift {b - a:.7f} (|err| {err:.2e}, limit 1e-5 * max(1, |ref|)), both K1 launches")
 
 
+@contextlib.contextmanager
+def dense_plan():
+    """Every static edit under the fallback plan (JAX's `_FALLBACK_PLAN`):
+    each site recomputed under unknown argdiffs, as the dense edits did."""
+    from genjax_tpu_torch.lang import static
+
+    real = static._static_edit_plan
+    static._static_edit_plan = lambda *a, **k: static._FALLBACK_PLAN
+    try:
+        yield
+    finally:
+        static._static_edit_plan = real
+
+
+@contextlib.contextmanager
+def counting_densities(box: list):
+    """Count the sites' density evaluations into `box[0]`: every draw
+    (which scores what it draws) and every re-score of a kept value."""
+    from genjax_tpu_torch.distributions.distribution import Distribution
+
+    draw, density = Distribution._draw, Distribution._density
+
+    def counted_draw(self, *a, **k):
+        box[0] += 1
+        return draw(self, *a, **k)
+
+    def counted_density(self, *a, **k):
+        box[0] += 1
+        return density(self, *a, **k)
+
+    Distribution._draw, Distribution._density = counted_draw, counted_density
+    try:
+        yield
+    finally:
+        Distribution._draw, Distribution._density = draw, density
+
+
+def schools_oracle_checks(oracle, mus, taus, thetas, label: str) -> str:
+    """H1's rule: mu, tau and each theta within 6 SE + 0.05 of the
+    quadrature oracle, n_eff = C S / 20, from (C, S) draws."""
+    n_eff = mus.shape[0] * mus.shape[1] / 20.0
+    report = []
+    for got, mean, var, what in ((mus.mean(), oracle.mu_mean, oracle.mu_var, "mu"),
+                                 (taus.mean(), oracle.tau_mean, oracle.tau_var, "tau")):
+        se = math.sqrt(float(var) / n_eff)
+        gap = abs(float(got) - float(mean))
+        check(gap < 6 * se + 0.05, f"{label} {what}: {float(got)} against the oracle's {float(mean)} (6 SE {6 * se})")
+        report.append(f"{what} {float(got):.3f} (oracle {float(mean):.3f}, bound {6 * se + 0.05:.3f})")
+    th_err = (thetas.mean((0, 1)) - oracle.theta_mean.double()).abs()
+    th_bound = 6 * (oracle.theta_var.double() / n_eff).sqrt() + 0.05
+    check(bool((th_err < th_bound).all()), f"{label} theta means off: {th_err.tolist()} against {th_bound.tolist()}")
+    report.append(f"every theta within its bound (largest gap {float(th_err.max()):.3f})")
+    return "; ".join(report)
+
+
+def phase_incremental(gx, ops, card: str, dev: str = "cuda") -> None:
+    """Incremental edits on the card. I1: MH-within-Gibbs on eight schools
+    at 8192 chains (non-centered over mu, log_tau, z from the prior;
+    centered over mu, log_tau, theta from the non-centered chains' last
+    state), held against the quadrature oracle; the analysis runs once
+    per model (0 cache misses after the first sweep, 0 fallbacks), 0
+    syncs per sweep, one sweep's weights under the plan equal to the dense
+    weights on the same state and generator; the plan against the dense
+    fallback plan in alternating runs (ms, density evaluations and device
+    items per sweep). I2: resample-move at K=1M, 10 runs: ImportanceK
+    from the prior on `ys`, the LML through K1 (one launch, held against
+    its plain twin on the run's own weights), a systematic resample, one
+    Gibbs sweep; the LML and the posterior mean of mu against the oracle.
+    I3: `SafeHMC` over mu and log_tau on the centered model (retdiff
+    NoChange); on the non-centered one it raises."""
+    from genjax_tpu_torch import profiling
+    from genjax_tpu_torch.core.typing import per_particle
+    from genjax_tpu_torch.inference.diagnostics import split_rhat
+    from genjax_tpu_torch.inference.requests import SafeHMC
+    from genjax_tpu_torch.lang import analysis
+    from genjax_tpu_torch.models import hierarchical as h
+
+    cfg = INCREMENTAL_CFG
+    t_phase = time.perf_counter()
+    rng = torch.Generator(device=dev).manual_seed(13)
+    y, sigma = h.EIGHT_SCHOOLS_Y.to(dev), h.EIGHT_SCHOOLS_SIGMA.to(dev)
+    oracle = h.eight_schools_quadrature(h.EIGHT_SCHOOLS_Y, h.EIGHT_SCHOOLS_SIGMA)
+    C, obs = cfg["chains"], gx.ChoiceMap.kw(ys=y)
+    models = {
+        "non-centered": (h.eight_schools, [gx.Selection.at[a] for a in ("mu", "log_tau", "z")]),
+        "centered": (h.eight_schools_centered, [gx.Selection.at[a] for a in ("mu", "log_tau", "theta")]),
+    }
+
+    def collect(t):
+        ch = t.get_choices()
+        return ch["mu"], ch["log_tau"], t.get_retval()
+
+    traces = {}
+    tr, _ = h.eight_schools.importance(rng, obs, (sigma,), n=C)
+    for label, (model, sels) in models.items():
+        if label == "centered":
+            last = traces["non-centered"]
+            ch = last.get_choices()
+            start = obs | gx.ChoiceMap.kw(mu=per_particle(ch["mu"]), log_tau=per_particle(ch["log_tau"]),
+                                          theta=per_particle(last.get_retval()))
+            tr, _ = model.importance(rng, start, (sigma,), n=C)
+        s0 = analysis.stats()
+        tr = gx.gibbs_sweep(rng, tr, sels)  # the first sweep runs the analysis
+        s1 = analysis.stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr, _ = gx.gibbs_chain(rng, tr, sels, cfg["burn"] - 1)
+        tr, (mus, lts, thetas) = gx.gibbs_chain(rng, tr, sels, cfg["sweeps"], collect)
+        torch.cuda.synchronize()
+        run_ms = 1e3 * (time.perf_counter() - t0)
+        syncs = count_syncs(lambda: gx.gibbs_chain(rng, tr, sels, cfg["sync_sweeps"]))
+        s2 = analysis.stats()
+        # One analysis, or none where an earlier path (H1's ChEES edits)
+        # analyzed the same model at the same shapes.
+        first = s1["misses"] - s0["misses"]
+        check(first <= 1, f"I1 {label}: {first} analyses in the first sweep")
+        check(s2["misses"] == s1["misses"], f"I1 {label}: {s2['misses'] - s1['misses']} cache misses after the first sweep")
+        check(s2["fallbacks"] == s0["fallbacks"], f"I1 {label}: fallbacks {s0['fallbacks']} -> {s2['fallbacks']}")
+        check(syncs == 0, f"I1 {label}: {syncs} syncs over {cfg['sync_sweeps']} sweeps")
+        mus, taus, lts = mus.T.double().cpu(), torch.exp(lts.T.double().cpu()), lts.T.double().cpu()
+        thetas = thetas.transpose(0, 1).double().cpu()
+        check(bool(torch.isfinite(thetas).all()) and thetas.shape == (C, cfg["sweeps"], 8), f"I1 {label}: theta draws")
+        report = schools_oracle_checks(oracle, mus, taus, thetas, f"I1 {label}")
+        rhat = {k: float(split_rhat(v).max()) for k, v in (("mu", mus), ("log_tau", lts), ("theta", thetas))}
+        if label == "non-centered":
+            check(max(rhat.values()) < 1.1, f"I1 {label}: R-hat {rhat}")
+        hits = s2["hits"] - s1["hits"]
+        print(f"[{card}] I1 {label} eight schools MH-within-Gibbs, {C} chains, {cfg['burn']} burn-in + "
+              f"{cfg['sweeps']} collected sweeps: {run_ms / (cfg['burn'] - 1 + cfg['sweeps']):.3f} ms per sweep; "
+              f"{report}; split R-hat {', '.join(f'{k} {v:.4f}' for k, v in rhat.items())}"
+              f"{' (limit 1.1)' if label == 'non-centered' else ' (reported: the funnel, see PERF.md)'}; "
+              f"analysis: {first} run(s) in the first sweep, {hits} cache hits and 0 misses after it, 0 fallbacks; "
+              f"{syncs} syncs over {cfg['sync_sweeps']} sweeps")
+
+        # One sweep's weights under the plan against the dense weights, on
+        # the same state and generator.
+        worst, t = 0.0, tr
+        for sel in sels:
+            state = rng.get_state()
+            new, w, _, _ = gx.Regenerate(sel).edit(rng, t, gx.Diff.no_change(t.get_args()))
+            rng.set_state(state)
+            with dense_plan():
+                dense, w_dense, _, _ = gx.Regenerate(sel).edit(rng, t, gx.Diff.no_change(t.get_args()))
+            gap = float(((w - w_dense).abs() / torch.clamp(w_dense.abs(), min=1.0)).max())
+            check(gap <= 1e-5, f"I1 {label}: plan weights against dense weights at {sel}: {gap}")
+            for a, b in zip(torch.utils._pytree.tree_leaves(new.get_choices()),
+                            torch.utils._pytree.tree_leaves(dense.get_choices())):
+                check(torch.equal(a, b), f"I1 {label}: the plan's proposal differs from the dense one at {sel}")
+            worst = max(worst, gap)
+            t, _ = gx.mh(rng, t, gx.Regenerate(sel))
+
+        # The plan against the dense fallback plan: time, density
+        # evaluations and device items per sweep.
+        def sweeps(n):
+            return lambda: gx.gibbs_chain(rng, tr, sels, n)
+
+        def dense_sweeps(n):
+            def run():
+                with dense_plan():
+                    return gx.gibbs_chain(rng, tr, sels, n)
+            return run
+
+        times = alternating({"plan": sweeps(cfg["timed_sweeps"]), "dense": dense_sweeps(cfg["timed_sweeps"])},
+                            cfg["timed_pairs"])
+        per_sweep = {k: statistics.median(v) / cfg["timed_sweeps"] for k, v in times.items()}
+        evals = {}
+        for k, fn in (("plan", sweeps(1)), ("dense", dense_sweeps(1))):
+            box = [0]
+            with counting_densities(box):
+                fn()
+            evals[k] = box[0]
+        profs = {k: profiling.trace(fn, 1) for k, fn in (("plan", sweeps(1)), ("dense", dense_sweeps(1)))}
+        print(f"[{card}] I1 {label}: one sweep's weights under the plan equal the dense ones (largest gap "
+              f"{worst:.2e} of max(1, |w|), limit 1e-5; proposals identical); per sweep, plan against dense "
+              f"(alternating, {cfg['timed_pairs']} pairs of {cfg['timed_sweeps']} sweeps, host clock, median): "
+              f"{per_sweep['plan']:.3f} ms against {per_sweep['dense']:.3f} ms "
+              f"({per_sweep['dense'] / per_sweep['plan']:.2f}x); density evaluations {evals['plan']} against "
+              f"{evals['dense']}; device items {profs['plan']['device_items_per_step']:.1f} against "
+              f"{profs['dense']['device_items_per_step']:.1f}")
+        for k, prof in profs.items():
+            print_profile(card, f"I1 {label} sweep ({k})", prof)
+        traces[label] = tr
+
+    # I2: resample-move at a million particles.
+    K = cfg["particles"]
+    target = gx.Target(h.eight_schools, (sigma,), obs)
+    sels = models["non-centered"][1]
+    lmls, mu_means, k1_err = [], [], 0.0
+    before = ops.fused_logsumexp.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for run in range(cfg["rm_runs"]):
+        coll = gx.ImportanceK(target, k_particles=K).run_smc(rng)
+        lw = coll.get_log_weights()
+        lse = ops.logsumexp(lw)
+        if run == 0:
+            k1_err, _ = k1_against_plain(ops, lw)
+        moved = gx.gibbs_sweep(rng, coll.resample(rng, "systematic", lse=lse).get_particles(), sels)
+        lmls.append(float(lse) - math.log(K))
+        mu_means.append(float(moved.get_choices()["mu"].double().mean()))
+    torch.cuda.synchronize()
+    rm_ms = 1e3 * (time.perf_counter() - t0) / cfg["rm_runs"]
+    launched = ops.fused_logsumexp.launches - before
+    check(launched == cfg["rm_runs"], f"I2: {launched} K1 launches over {cfg['rm_runs']} runs (one per LML)")
+    print(f"[{card}] I2 resample-move K={K}, {cfg['rm_runs']} runs: {rm_ms:.1f} ms per run; "
+          f"{within_se(lmls, float(oracle.log_evidence), 'LML', 5.0)}; "
+          f"{within_se(mu_means, float(oracle.mu_mean), 'posterior mean of mu', 5.0)}; K1 {launched} launches "
+          f"(one per LML), against its plain twin on run 0's weights: largest error {k1_err:.2e} of max(1, |ref|)")
+
+    # I3: SafeHMC over mu and log_tau.
+    sel = gx.Selection.at["mu"] | gx.Selection.at["log_tau"]
+    request = SafeHMC(sel, cfg["hmc_eps"], cfg["hmc_L"])
+    ctr = traces["centered"]
+    _, alpha, rd, _ = request.edit(rng, ctr, gx.Diff.no_change(ctr.get_args()))
+    check(gx.Diff.static_check_no_change(rd), "I3: SafeHMC's retdiff on the centered model")
+    # A chain in the funnel's neck (tau ~ e^-6) takes leapfrog steps that
+    # diverge (NaN, then rejected), as HMC on the centered model does.
+    diverged = int((~torch.isfinite(alpha)).sum())
+    check(alpha.shape == (C,) and diverged <= C // 100, f"I3: SafeHMC's log accept ratios: {diverged} not finite")
+    accepted = []
+    for _ in range(cfg["hmc_steps"]):
+        ctr, acc = gx.mh(rng, ctr, request)
+        accepted.append(acc)
+    rate = float(torch.stack(accepted).float().mean())
+    try:
+        request.edit(rng, traces["non-centered"], gx.Diff.no_change(traces["non-centered"].get_args()))
+        raised = False
+    except AssertionError:
+        raised = True
+    check(raised, "I3: SafeHMC on the non-centered model (theta = mu + tau z is the return value) did not raise")
+    print(f"[{card}] I3 SafeHMC over mu and log_tau, centered, {C} chains: retdiff NoChange, "
+          f"{cfg['hmc_steps']} MH steps at eps {cfg['hmc_eps']}, L {cfg['hmc_L']}: accept rate {rate:.3f}; "
+          f"{diverged} of {C} first moves diverged (the funnel's neck); on the non-centered model it raises")
+    # P2's block move regenerates every site of its mixture, so the plan
+    # keeps none there: its cost is the plan's lookups alone, against the
+    # dense fallback plan in alternating runs.
+    m = branching_models(gx, dev)
+    mix_chains, _ = m.mixture.importance(rng, gx.ChoiceMap.kw(y=MIX_Y), (), n=BRANCH_CHAINS)
+    block = gx.Regenerate(m.block)
+
+    def block_steps():
+        return gx.run_chains(rng, mix_chains, block, PROFILE_SWEEPS)
+
+    def dense_block_steps():
+        with dense_plan():
+            return block_steps()
+
+    times = alternating({"plan": block_steps, "dense": dense_block_steps}, cfg["p2_pairs"])
+    p2 = {k: statistics.median(v) / PROFILE_SWEEPS for k, v in times.items()}
+    print(f"[{card}] P2 block-move MH C={BRANCH_CHAINS} under the plan against the dense fallback plan (alternating, "
+          f"{cfg['p2_pairs']} pairs of {PROFILE_SWEEPS} steps, host clock, median): {p2['plan']:.3f} ms against "
+          f"{p2['dense']:.3f} ms per MH step")
+
+    # Logreg HMC's final `Update` of each MH step goes through the plan
+    # too: its device items per leapfrog step beside PERF.md §5's 76.1
+    # (P2's, N1's and H1's are in their own phases' profile lines).
+    from genjax_tpu_torch.models import logreg
+
+    hmc = logreg.BenchConfig()
+    X, yl = hmc.data(dev)
+    print_profile(card, "logreg HMC under the edit plan (per leapfrog step; PERF.md §5: 76.1 items)",
+                  profiling.trace(lambda: logreg.run_hmc_chains(rng, X, yl, n_chains=hmc.n_chains, n_steps=hmc.n_steps,
+                                                                eps=hmc.eps, L=hmc.L), hmc.n_steps * hmc.L))
+    print(f"[{card}] phase_incremental wall: {time.perf_counter() - t_phase:.1f} s; analysis record of the whole "
+          f"smoke {analysis.stats()}")
+
+
 def cost_line(card: str, label: str, steps: int, on: list, off: list, per_run: int) -> None:
     """Print the checks' cost on one path from alternating runs with the
     checks on and off (ms per run) and the wrapped calls of one run."""
@@ -3049,6 +3321,7 @@ def main() -> None:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import genjax_tpu_torch as gx
     from genjax_tpu_torch import ops
+    from genjax_tpu_torch.lang import analysis
     from genjax_tpu_torch.ops import _build
 
     t_smoke = time.perf_counter()
@@ -3066,9 +3339,20 @@ def main() -> None:
 
     # The main paths, each with every launch count set to 0 just before it
     # and read just after.
+    # And the edit plan's record of each path: analyses, cache hits, and
+    # the edits that fell back to the dense plan, by reason.
+    plans = []
+
     def drive(phase) -> dict:
         ops.fused_logsumexp.launches = ops.fused_logsumexp_ess.launches = 0
+        before = analysis.stats()
         phase()
+        after = analysis.stats()
+        plans.append({
+            "analyses": after["analyses"] - before["analyses"], "hits": after["hits"] - before["hits"],
+            "fallbacks": {r: n - before["fallbacks"].get(r, 0) for r, n in after["fallbacks"].items()
+                          if n > before["fallbacks"].get(r, 0)},
+        })
         return {"logsumexp": ops.fused_logsumexp.launches, "logsumexp_ess": ops.fused_logsumexp_ess.launches}
 
     paths = {
@@ -3088,6 +3372,7 @@ def main() -> None:
     t_aux = time.perf_counter()
     paths["aux"] = drive(lambda: phase_aux(gx, ops, card))
     print(f"[{card}] phase_aux wall: {time.perf_counter() - t_aux:.1f} s")
+    paths["incremental"] = drive(lambda: phase_incremental(gx, ops, card))
     backward["grad_max_abs_err"] = max(backward["grad_max_abs_err"], *vi_grad_err)
     launches = {name: sum(p[name] for p in paths.values()) for name in ("logsumexp", "logsumexp_ess")}
     for name, count in paths["particle"].items():
@@ -3104,9 +3389,11 @@ def main() -> None:
         check(count > 0, f"the last six algorithms' path (SMC², the RBPF, ABC-SMC) launched no {name} kernel")
     for name, count in paths["aux"].items():
         check(count > 0, f"the auxiliary layer's path (the resumed SMC state, SIR, time travel) launched no {name} kernel")
+    check(paths["incremental"]["logsumexp"] > 0, "the incremental edits' path (I2's LML) launched no logsumexp kernel")
     print("kernel launches on the main paths: " + ", ".join(
         f"{name} {count} (" + ", ".join(f"{path} path {p[name]}" for path, p in paths.items()) + ")"
         for name, count in launches.items()))
+    print("the edit plan on the main paths: " + "; ".join(f"{path} path {p}" for path, p in zip(paths, plans)))
     print(f"[{card}] smoke total wall: {time.perf_counter() - t_smoke:.1f} s")
 
     print(json.dumps({"kernels": [{

@@ -26,7 +26,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from genjax_tpu_torch.combinators.dimap import Dimap
-from genjax_tpu_torch.combinators.vmap import _check_indexable
+from genjax_tpu_torch.combinators.vmap import _check_indexable, rediff
 from genjax_tpu_torch.core.checkify import should_check
 from genjax_tpu_torch.core.choice_map import ChoiceMap, NoneSel, Selection
 from genjax_tpu_torch.core.concepts import (
@@ -401,7 +401,6 @@ class Scan(Generic[Carry, Y], GenerativeFunction[tuple[Carry, Y]]):
         if steps.length != trace.scan_length:
             raise ValueError("Scan.edit: the number of steps changed")
         depths = trace.inner.batched_leaves()
-        x_changed = not Diff.static_check_no_change(argdiffs[1])
         buffers, bwds = None, []
         weight = torch.zeros((), device=rng.device)
         for t in range(steps.length):
@@ -409,7 +408,10 @@ class Scan(Generic[Carry, Y], GenerativeFunction[tuple[Carry, Y]]):
             if t == 0:
                 carry = _carry_like(carry, old.get_args()[0])
             x = steps.at(t)
-            step_diffs = (Diff.unknown_change(carry), Diff.unknown_change(x) if x_changed else Diff.no_change(x))
+            # The carry may have changed at any step; the scanned slice keeps
+            # the caller's tangents leaf for leaf, so a NoChange data axis
+            # keeps the kernel's plan.
+            step_diffs = (Diff.unknown_change(carry), rediff(x, argdiffs[1]))
             request = make_request(t)
             if isinstance(request, PrimitiveEditRequest):
                 new, w, retdiff, bwd = self.kernel_gen_fn.edit(rng, old, request, step_diffs, n)

@@ -274,6 +274,10 @@ class Switch(Generic[R], GenerativeFunction[R]):
             pytree.tree_structure(b) == pytree.tree_structure(bwds[0]) for b in bwds
         ):
             return bwds[0]
+        if all(pytree.tree_structure(b) == pytree.tree_structure(bwds[0]) for b in bwds):
+            # One layout (the branches' `StaticRequest`s of a `Regenerate`):
+            # each leaf selected by the index, as JAX's `tree_choose` does.
+            return tree_choose(idx, bwds, depth, [_request_depths(b) for b in bwds])
         return UnsupportedBackwardRequest(
             "Switch branches produced structurally different backward requests; reverse this move by "
             "re-simulating or constraining the old choices explicitly."
@@ -355,6 +359,15 @@ class Switch(Generic[R], GenerativeFunction[R]):
         trace_new = self._build(stored, record, subtraces, new, 0, trace.batch)
         weight = trace_new.score - trace.score
         return trace_new, weight, Diff.unknown_change(trace_new.retval), Update(trace.get_choices())
+
+
+def _request_depths(request) -> list[int]:
+    """The depth of each leaf of an edit request, in `tree_leaves` order:
+    a choice map's from its record, any other leaf's from its mark."""
+    out: list[int] = []
+    for node in pytree.tree_leaves(request, is_leaf=lambda x: isinstance(x, ChoiceMap)):
+        out += node.batched_leaves() if isinstance(node, ChoiceMap) else [depth_of(node)]
+    return out
 
 
 def switch(*gen_fns: GenerativeFunction[R]) -> Switch[R]:

@@ -78,6 +78,16 @@ def _axes_per_leaf(in_axes: Any, tree: Any) -> list:
     raise TypeError(f"vmap: in_axes holds {in_axes!r}")
 
 
+def rediff(args: Any, argdiffs: Any) -> Any:
+    """`args` (a slice or a re-layout of `argdiffs`' primals, in one
+    structure) with `argdiffs`' tangents, leaf for leaf; all
+    `UnknownChange` where the structures differ."""
+    try:
+        return Diff.tree_diff(args, Diff.tree_tangent(argdiffs))
+    except Exception:  # noqa: BLE001 - coarse is always correct
+        return Diff.unknown_change(args)
+
+
 def _sum_lanes(x: Any, n: int) -> Any:
     """The total over the lanes of a per-lane score or weight (the lane
     axis is the last); one that is the same in every lane counts `n`
@@ -377,8 +387,11 @@ class Vmap(Generic[R], GenerativeFunction[R]):
         inner_args, args, record, lanes = self._enter(Diff.tree_primal(argdiffs), trace.args_record(), False)
         if lanes != trace.dim_length:
             raise ValueError("Vmap.edit: the mapped arguments' axis length changed")
-        unchanged = Diff.static_check_no_change(argdiffs)
-        inner_argdiffs = Diff.no_change(inner_args) if unchanged else Diff.unknown_change(inner_args)
+        # The kernel's arguments keep the caller's tangents leaf for leaf
+        # (they are the same for every lane), so an edit under NoChange
+        # arguments recurses the kernel's plan instead of re-scoring every
+        # site that reads them.
+        inner_argdiffs = rediff(inner_args, argdiffs)
         new_inner, w, _, bwd = self.gen_fn.edit(rng, trace.inner, request, inner_argdiffs, batch + (lanes,))
         new = VmapTrace.build(self, new_inner, args, record, lanes, batch)
         return new, _sum_lanes(w, lanes), Diff.unknown_change(new.retval), bwd

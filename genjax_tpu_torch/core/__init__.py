@@ -25,7 +25,7 @@ from genjax_tpu_torch.core.concepts import (
     Score,
     Weight,
 )
-from genjax_tpu_torch.core.diff import ChangeTangent, Diff, NoChange, UnknownChange
+from genjax_tpu_torch.core.diff import ChangeTangent, Diff, NoChange, UnknownChange, incremental
 from genjax_tpu_torch.core.gather import take_rows
 from genjax_tpu_torch.core.gfi import (
     GenerativeFunction,
@@ -36,8 +36,8 @@ from genjax_tpu_torch.core.gfi import (
 )
 from genjax_tpu_torch.core.mask import Mask
 from genjax_tpu_torch.core.pytree import Closure, Const, Pytree, PythonicPytree, nth
-from genjax_tpu_torch.core.requests import EmptyRequest, Regenerate
-from genjax_tpu_torch.core.staging import FlagOp, empty_trace, multi_switch, tree_choose
+from genjax_tpu_torch.core.requests import DiffAnnotate, EmptyRequest, Regenerate
+from genjax_tpu_torch.core.staging import FlagOp, empty_trace, multi_switch, to_shape_fn, tree_choose
 from genjax_tpu_torch.core.typecheck import do_typecheck, is_typechecked
 from genjax_tpu_torch.core.typing import R
 
@@ -52,6 +52,7 @@ __all__ = [
     "Closure",
     "Const",
     "Diff",
+    "DiffAnnotate",
     "EditRequest",
     "EmptyRequest",
     "FlagOp",
@@ -82,10 +83,12 @@ __all__ = [
     "do_checkify",
     "do_typecheck",
     "empty_trace",
+    "incremental",
     "is_typechecked",
     "multi_switch",
     "nth",
     "optional_check",
     "take_rows",
+    "to_shape_fn",
     "tree_choose",
 ]

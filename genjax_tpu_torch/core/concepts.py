@@ -33,6 +33,19 @@ class EditRequest(Pytree):
     def edit(self, rng, tr, argdiffs: Argdiffs) -> tuple[Any, Weight, Retdiff, "EditRequest"]:
         raise NotImplementedError
 
+    def dimap(self, /, *, pre=lambda v: v, post=lambda v: v) -> "EditRequest":
+        """This request with its argdiffs mapped by `pre` and its retdiff
+        by `post` (`core/requests.py::DiffAnnotate`)."""
+        from genjax_tpu_torch.core.requests import DiffAnnotate
+
+        return DiffAnnotate(self, argdiff_fn=pre, retdiff_fn=post)
+
+    def map(self, post) -> "EditRequest":
+        return self.dimap(post=post)
+
+    def contramap(self, pre) -> "EditRequest":
+        return self.dimap(pre=pre)
+
 
 class PrimitiveEditRequest(EditRequest):
     """An edit request whose implementation is the generative function's

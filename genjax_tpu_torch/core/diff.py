@@ -1,10 +1,12 @@
 """Values with change tangents (`Diff` leaves) for edits.
 
-Counterpart of the part of `genjax_tpu/core/diff.py` that the edits use:
-`Diff.no_change`, `Diff.unknown_change`, `Diff.tree_primal` and
-`Diff.static_check_no_change`. The port's edits are dense (every site is
-re-scored), so a tangent only tells a request whether the arguments
-changed.
+Counterpart of `genjax_tpu/core/diff.py`: `ChangeTangent`, `NoChange`,
+`UnknownChange`, `Diff` with its tree helpers, and `incremental`. A
+tangent is known when the program runs: it tells an edit which argument
+leaves may have changed, and the static language's edit plan
+(`lang/static.py`, from the site graph of `lang/analysis.py`) hands each
+site per-leaf tangents, so that a site whose arguments did not change is
+kept or edited without re-scoring.
 """
 
 from typing import Any
@@ -70,8 +72,25 @@ class Diff(Pytree):
         return pytree.tree_map(lambda x: Diff(Diff.tree_primal(x), NoChange), v, is_leaf=_is_diff)
 
     @staticmethod
+    def tree_diff(primal_tree, tangent_tree) -> Any:
+        """Pair a primal tree with a tree of `ChangeTangent`s of the same
+        structure."""
+        return pytree.tree_map(lambda p, t: Diff(p, t), primal_tree, tangent_tree, is_leaf=_is_diff)
+
+    @staticmethod
     def tree_primal(v) -> Any:
         return pytree.tree_map(lambda x: x.primal if isinstance(x, Diff) else x, v, is_leaf=_is_diff)
+
+    @staticmethod
+    def tree_tangent(v) -> Any:
+        """The tangent of every leaf of `v`: a `Diff`'s own, else
+        `UnknownChange`."""
+        return pytree.tree_map(lambda x: x.tangent if isinstance(x, Diff) else UnknownChange, v, is_leaf=_is_diff)
+
+    @staticmethod
+    def static_check_tree_diff(v) -> bool:
+        """True if every leaf of `v` is a `Diff`."""
+        return all(isinstance(leaf, Diff) for leaf in pytree.tree_leaves(v, is_leaf=_is_diff))
 
     @staticmethod
     def static_check_no_change(v) -> bool:
@@ -83,4 +102,29 @@ class Diff(Pytree):
         )
 
 
-__all__ = ["ChangeTangent", "Diff", "NoChange", "UnknownChange"]
+def incremental(fn):
+    """Change propagation at the grain of a whole function:
+    `incremental(fn)(handler, primals, tangents)` runs `fn` on the primals
+    and tags every leaf of its result `NoChange` if every input leaf was
+    `NoChange`, else `UnknownChange` (JAX's rule; the handler slot is kept
+    for the reference's signature and ignored).
+
+    >>> from genjax_tpu_torch.core.diff import Diff, NoChange, UnknownChange, incremental
+    >>> add = incremental(lambda a, b: a + b)
+    >>> Diff.static_check_no_change(add(None, (1.0, 2.0), (NoChange, NoChange)))
+    True
+    >>> add(None, (1.0, 2.0), (NoChange, UnknownChange)).tangent
+    _UnknownChange
+    """
+
+    def wrapped(_handler, primals, tangents):
+        diffs = Diff.tree_diff(primals, tangents)
+        out = fn(*primals)
+        if Diff.static_check_no_change(diffs):
+            return Diff.no_change(out)
+        return Diff.unknown_change(out)
+
+    return wrapped
+
+
+__all__ = ["ChangeTangent", "Diff", "NoChange", "UnknownChange", "incremental"]

@@ -149,8 +149,12 @@ class GenerativeFunction(Generic[R], Pytree):
         return GenerativeFunctionClosure(self, args, kwargs)
 
     def __abstract_call__(self, *args) -> R:
-        """The return value of a call, with every tensor leaf zero."""
-        return self.get_zero_trace(*args).get_retval()
+        """The return value of a call, with every tensor leaf zero, on the
+        arguments' device: a shape-only `simulate` (`to_shape_fn`), which
+        draws nothing and does no device work."""
+        from genjax_tpu_torch.core.staging import SHAPE_RNG, to_shape_fn, zeros_on
+
+        return to_shape_fn(lambda *a: self.simulate(SHAPE_RNG, a).get_retval(), zeros_on(args))(*args)
 
     def handle_kwargs(self) -> "GenerativeFunction[R]":
         """The function that takes `((args...), {kwargs...})`: here the

@@ -198,6 +198,12 @@ def _same(a: Any, b: Any) -> bool:
         return False
     if isinstance(a, (tuple, list)):
         return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, Pytree):
+        # By structure, as JAX's `_static_eq` does: a cell often holds a
+        # generative function built in the same body (a `mix`'s `Switch`).
+        la, sa = pytree.tree_flatten(a)
+        lb, sb = pytree.tree_flatten(b)
+        return sa == sb and len(la) == len(lb) and all(_same(x, y) for x, y in zip(la, lb))
     try:
         return bool(a == b)
     except Exception:

@@ -1,9 +1,14 @@
-"""Core edit requests: `EmptyRequest`, `Regenerate` and
-`UnsupportedBackwardRequest`.
+"""Core edit requests: `EmptyRequest`, `Regenerate`,
+`UnsupportedBackwardRequest` and `DiffAnnotate`.
 
-Counterpart of part of `genjax_tpu/core/requests.py` (`Update` is in
-`core/gfi.py`). `DiffAnnotate` waits for the site-graph analysis.
+Counterpart of `genjax_tpu/core/requests.py` (`Update` is in
+`core/gfi.py`). `DiffAnnotate` rewrites the argdiffs a request sees and
+the retdiff it returns (`EditRequest.dimap`, `map`, `contramap`): with
+incremental edits a retdiff says what the static analysis proved, so a
+`map` can assert it (`inference/requests/hmc.py::SafeHMC`).
 """
+
+from typing import Any
 
 import torch
 
@@ -47,4 +52,23 @@ class UnsupportedBackwardRequest(EditRequest):
         raise NotSupportedEditRequest(f"This edit's backward request is not representable: {self.reason}")
 
 
-__all__ = ["EmptyRequest", "Regenerate", "UnsupportedBackwardRequest"]
+def _identity(v):
+    return v
+
+
+@Pytree.dataclass
+class DiffAnnotate(EditRequest):
+    """Another request with its argdiffs mapped by `argdiff_fn` before it
+    runs and its retdiff by `retdiff_fn` after (unchecked: the functions
+    are trusted, as in JAX)."""
+
+    request: EditRequest
+    argdiff_fn: Any = Pytree.static(default=_identity)
+    retdiff_fn: Any = Pytree.static(default=_identity)
+
+    def edit(self, rng: torch.Generator, tr: Trace, argdiffs: Argdiffs):
+        tr, w, retdiff, bwd = self.request.edit(rng, tr, self.argdiff_fn(argdiffs))
+        return tr, w, self.retdiff_fn(retdiff), bwd
+
+
+__all__ = ["DiffAnnotate", "EmptyRequest", "Regenerate", "UnsupportedBackwardRequest"]

@@ -1,7 +1,9 @@
 """Flags and selections between pytrees: `FlagOp`, `tree_choose`,
-`multi_switch` and `where_tree`; `empty_trace`.
+`multi_switch` and `where_tree`; shape-only calls (`to_shape_fn`) and
+`empty_trace`.
 
-Counterpart of part of `genjax_tpu/core/staging.py`. JAX's `lax.switch`
+Counterpart of `genjax_tpu/core/staging.py` but for its jaxpr staging
+(`stage`, `get_shaped_aval`). JAX's `lax.switch`
 runs one branch into zero templates of the others; under a batch of
 particles every particle may take another branch, so here a tensor index
 runs every branch on every row and the results are selected leaf by leaf
@@ -9,14 +11,16 @@ runs every branch on every row and the results are selected leaf by leaf
 which the host reads for free) runs one branch.
 """
 
+import functools
 from typing import Any, Callable, Iterable, Sequence
 
 import torch
 import torch.utils._pytree as pytree
+from torch.overrides import TorchFunctionMode
 
 from genjax_tpu_torch.core.gather import batched_mask
 from genjax_tpu_torch.core.mask import _and, _not, _or, select
-from genjax_tpu_torch.core.typing import host_scalar
+from genjax_tpu_torch.core.typing import depth_of, device_of, host_scalar, mark
 
 
 class FlagOp:
@@ -154,6 +158,93 @@ def where_tree(flag: torch.Tensor, on_true, on_false):
         return a
 
     return pytree.tree_unflatten([select(a, b, t) for a, b, t in zip(a_leaves, b_leaves, bits)], spec)
+
+
+META = torch.device("meta")
+
+
+class _MetaGenerator(torch.Generator):
+    """The generator of a shape-only call: it says it lives on the meta
+    device, so a sampler's draw `torch.rand(shape, generator=rng,
+    device=rng.device)` makes a meta tensor. `_ShapeOnly` takes it out of
+    every call: a meta kernel draws nothing."""
+
+    @property
+    def device(self) -> torch.device:
+        return META
+
+
+SHAPE_RNG = _MetaGenerator()
+
+
+_NO_META_KERNEL = frozenset({torch.binomial, torch.poisson, torch._standard_gamma, torch._sample_dirichlet})
+
+
+class _ShapeOnly(TorchFunctionMode):
+    """The mode of a shape-only call. A meta tensor holds no value, so a
+    lane loop's host read "has every lane finished?" (`bool(done.all())`,
+    the masked rejection samplers') answers yes: the loop runs once, and
+    its result has the shape of every other trip's."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if "generator" in kwargs:
+            kwargs = {k: v for k, v in kwargs.items() if k != "generator"}
+        if func is torch.Tensor.__bool__ and args[0].is_meta:
+            return True
+        # Samplers that some PyTorch versions give no meta kernel: a draw
+        # has its operand's shape and dtype (`binomial`'s, the broadcast).
+        if func in _NO_META_KERNEL and args[0].is_meta:
+            if func is torch.binomial:
+                return torch.empty(torch.broadcast_shapes(args[0].shape, args[1].shape), dtype=args[0].dtype, device=META)
+            return torch.empty_like(args[0])
+        return func(*args, **kwargs)
+
+
+def to_meta(x: Any) -> Any:
+    """A tensor's meta twin (its shape, dtype and batch mark; no data, no
+    device work), and for a generator the shape-only one; anything else
+    passes through."""
+    if isinstance(x, torch.Generator):
+        return SHAPE_RNG
+    if not isinstance(x, torch.Tensor) or (x.is_meta and type(x) is torch.Tensor):
+        return x
+    return mark(torch.empty(x.shape, dtype=x.dtype, device=META), depth_of(x))
+
+
+def to_shape_fn(callable: Callable[..., Any], fill_fn: Callable[..., Any] | None = None) -> Callable[..., Any]:
+    """`callable` as a shape-only function (JAX's `to_shape_fn`, which
+    runs `jax.eval_shape`): the arguments' tensors become meta tensors of
+    their shapes and dtypes, a generator among them the shape-only one,
+    the call runs on them (a draw makes a meta tensor and reads nothing),
+    and the output comes back as meta tensors, or filled by
+    `fill_fn(shape, dtype=dtype)`.
+
+    >>> import torch
+    >>> from genjax_tpu_torch.core.staging import to_shape_fn
+    >>> out = to_shape_fn(lambda x: (x.sum(-1), x > 0))(torch.zeros(3, 4))
+    >>> [(tuple(t.shape), t.dtype, t.device.type) for t in out]
+    [((3,), torch.float32, 'meta'), ((3, 4), torch.bool, 'meta')]
+    >>> to_shape_fn(lambda x: x @ x.mT, torch.zeros)(torch.ones(2, 5))
+    tensor([[0., 0.],
+            [0., 0.]])
+    """
+
+    def wrapped(*args, **kwargs):
+        args, kwargs = pytree.tree_map(to_meta, (args, kwargs))
+        with _ShapeOnly():
+            out = callable(*args, **kwargs)
+        if fill_fn is None:
+            return out
+        return pytree.tree_map(lambda x: fill_fn(x.shape, dtype=x.dtype) if isinstance(x, torch.Tensor) else x, out)
+
+    return wrapped
+
+
+def zeros_on(args: Any) -> Callable[..., torch.Tensor]:
+    """The fill of an abstract call: zeros on the device of the first
+    tensor among `args` (meta, inside the site-graph analysis)."""
+    return functools.partial(torch.zeros, device=device_of(*pytree.tree_leaves(args)))
 
 
 def empty_trace(gen_fn, args: tuple):

@@ -37,7 +37,8 @@ from genjax_tpu_torch.core.gfi import GenerativeFunction, GenerativeFunctionClos
 from genjax_tpu_torch.core.mask import Mask, flag_on
 from genjax_tpu_torch.core.pytree import Const, Pytree, n_leaves
 from genjax_tpu_torch.core.requests import EmptyRequest, Regenerate
-from genjax_tpu_torch.core.typing import as_value, batch_dims, device_of, mark, nobeartype, plain
+from genjax_tpu_torch.core.staging import SHAPE_RNG
+from genjax_tpu_torch.core.typing import PerParticle, as_value, batch_dims, device_of, mark, nobeartype, plain
 
 R = TypeVar("R")
 
@@ -147,6 +148,11 @@ class Distribution(Generic[R], GenerativeFunction[R]):
     # one number per parameter (`categorical`: the axis over categories).
     param_event_extra: Any = 0
 
+    # The return value IS the sampled value: a site that an edit leaves
+    # alone keeps its value even when its arguments change, so no change
+    # flows through it (`lang/analysis.py`'s taint rules).
+    retval_is_value = True
+
     def __call__(self, *args, sample_shape=(), **kwargs) -> GenerativeFunctionClosure[R]:
         """The site `self(*args)`, parameters by position or keyword
         (`bind`); `sample_shape=` (a tuple or a `Const` of one) makes it
@@ -197,7 +203,9 @@ class Distribution(Generic[R], GenerativeFunction[R]):
         """The trace of a site: `value` and `density` are plain tensors
         (`_draw`, `_density`); the parameters lose their marks."""
         score = site_score(density, value, batched, args, self.param_event_extra)
-        return DistributionTrace(self, tuple(plain(a) for a in args), value, score, int(batched))
+        if any(isinstance(a, PerParticle) for a in args):
+            args = tuple(plain(a) for a in args)
+        return DistributionTrace(self, args, value, score, int(batched))
 
     def simulate(self, rng: torch.Generator, args: tuple, n: "int | tuple | None" = None) -> Trace[R]:
         if checked.is_checked():
@@ -292,7 +300,7 @@ class Distribution(Generic[R], GenerativeFunction[R]):
         under the new arguments; the weight is the new score minus the old.
         A shared constraint on a per-particle site gives every particle
         that value."""
-        new_args = Diff.tree_primal(argdiffs)
+        new_args = _stored_args(trace, argdiffs)
         proposed = constraint.get_value()
         if proposed is None:
             winner, batched = trace.value, trace.batched
@@ -330,11 +338,14 @@ class Distribution(Generic[R], GenerativeFunction[R]):
         """Selected: a fresh draw from the prior under the new arguments, in
         the old value's shape; the weight is the change of the score (the
         proposal terms are `mcmc.mh`'s to subtract). Unselected: the value
-        is kept and re-scored."""
-        new_args = Diff.tree_primal(argdiffs)
+        is kept and re-scored, unless the arguments did not change: then the
+        trace itself comes back at zero weight, with no density call."""
+        new_args = _stored_args(trace, argdiffs)
         held = trace.value
         chosen = selection.check()
         if chosen is False:
+            if new_args is trace.args:
+                return trace, torch.zeros((), device=rng.device), Diff.no_change(held), Update(ChoiceMap.empty())
             new = self._trace(new_args, held, self._density(rng, held, new_args, trace.batched), trace.batched)
             return new, new.score - trace.score, Diff.no_change(held), Update(ChoiceMap.empty())
         if trace.batched:
@@ -359,6 +370,14 @@ class Distribution(Generic[R], GenerativeFunction[R]):
         return new, new.score - trace.score, Diff.unknown_change(new.value), Update(trace.get_choices())
 
 
+def _stored_args(trace: DistributionTrace, argdiffs) -> tuple:
+    """The arguments an edited site stores: the trace's own where the
+    argdiffs say nothing changed (as JAX keeps them), else the new ones."""
+    if isinstance(trace, DistributionTrace) and Diff.static_check_no_change(argdiffs):
+        return trace.args
+    return Diff.tree_primal(argdiffs)
+
+
 class ExactDensity(Generic[R], Distribution[R]):
     """Distributions with exact `sample` / `logpdf` implementations."""
 
@@ -370,6 +389,10 @@ class ExactDensity(Generic[R], Distribution[R]):
 
     def random_weighted(self, rng, *args, n=None) -> tuple[Score, R]:
         v = self.sample(rng, *args, n=n)
+        if rng is SHAPE_RNG:
+            # A shape-only call wants the value: the density is a placeholder
+            # that `site_score` sums over the event axes like any other.
+            return torch.empty(v.shape, device=v.device), v
         return self.logpdf(v, *args), v
 
     def estimate_logpdf(self, rng, v, *args) -> Weight:

@@ -1,6 +1,6 @@
-"""Change tangents (counterpart of `genjax_tpu.incremental`). JAX's
-`incremental` transform comes with the incremental edits."""
+"""Incremental computation facade (counterpart of `genjax_tpu.incremental`):
+the change tangents and `incremental`."""
 
-from genjax_tpu_torch.core.diff import ChangeTangent, Diff, NoChange, UnknownChange
+from genjax_tpu_torch.core.diff import ChangeTangent, Diff, NoChange, UnknownChange, incremental
 
-__all__ = ["ChangeTangent", "Diff", "NoChange", "UnknownChange"]
+__all__ = ["ChangeTangent", "Diff", "NoChange", "UnknownChange", "incremental"]

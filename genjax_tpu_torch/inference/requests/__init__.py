@@ -3,6 +3,7 @@ from genjax_tpu_torch.inference.requests.elliptical import EllipticalSlice, elli
 from genjax_tpu_torch.inference.requests.hmc import (
     HMC,
     MALA,
+    SafeHMC,
     assess_momenta,
     make_selection_grad_fn,
     sample_momenta,
@@ -19,6 +20,7 @@ __all__ = [
     "NUTS",
     "NUTSInfo",
     "Rejuvenate",
+    "SafeHMC",
     "assess_momenta",
     "elliptical_slice",
     "make_selection_grad_fn",

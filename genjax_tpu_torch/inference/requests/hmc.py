@@ -2,8 +2,10 @@
 
 Counterpart of `genjax_tpu/inference/requests/hmc.py`:
 `make_selection_grad_fn`, `selection_gradient`, `sample_momenta`,
-`assess_momenta`, `HMC` and `MALA`. `SafeHMC` waits for the site-graph
-analysis.
+`assess_momenta`, `HMC`, `SafeHMC` and `MALA`. `SafeHMC` is `HMC` whose
+retdiff must be `NoChange`: the incremental edit's site-graph analysis
+(`lang/analysis.py`) proves that the selected addresses cannot reach the
+model's return value, or the move raises.
 
 JAX differentiates one chain's `assess` and `vmap`s the move over chains.
 Here the move runs once over the batch: the gradient is
@@ -219,6 +221,35 @@ class HMC(EditRequest):
                 final_trace.get_score() - tr.get_score() + final_momenta_score - original_momenta_score
             )
         return final_trace, alpha, retdiff, HMC(self.selection, self.eps, self.L, self.inv_mass, self.jitter)
+
+
+def SafeHMC(selection: Selection, eps: FloatArray, L: int = 10):
+    """HMC with the assertion that its move leaves the model's return value
+    unchanged, as the static analysis proves it (`HMC(...).map`; the
+    reference's `hmc.py:214-225`). A move whose selected addresses may
+    reach the return value raises `AssertionError`.
+
+    >>> import torch
+    >>> import genjax_tpu_torch as gx
+    >>> from genjax_tpu_torch.inference.requests import SafeHMC
+    >>> @gx.gen
+    ... def model():
+    ...     mu = gx.normal(0.0, 1.0) @ "mu"
+    ...     return gx.normal(mu, 1.0) @ "obs"
+    >>> tr, _ = model.importance(torch.Generator().manual_seed(0), gx.ChoiceMap.kw(obs=1.0), (), n=8)
+    >>> _, _, rd, _ = SafeHMC(gx.Selection.at["mu"], 0.1, L=2).edit(torch.Generator(), tr, gx.Diff.no_change(()))
+    >>> gx.Diff.static_check_no_change(rd)
+    True
+    """
+
+    def retdiff_assertion(retdiff):
+        assert Diff.static_check_no_change(retdiff), (
+            "SafeHMC: the selected addresses may change the model's return value; use HMC directly if this is "
+            "intended."
+        )
+        return retdiff
+
+    return HMC(selection, eps, L).map(retdiff_assertion)
 
 
 @Pytree.dataclass

@@ -1,8 +1,10 @@
+from genjax_tpu_torch.lang import analysis
 from genjax_tpu_torch.lang.interop import trace
 from genjax_tpu_torch.lang.static import (
     AddressReuse,
     MissingAddress,
     StaticGenerativeFunction,
+    StaticRequest,
     StaticTrace,
     gen,
 )
@@ -11,6 +13,7 @@ __all__ = [
     "AddressReuse",
     "MissingAddress",
     "StaticGenerativeFunction",
+    "StaticRequest",
     "StaticTrace",
     "gen",
     "trace",

@@ -26,10 +26,23 @@ particle: a trace records its generative function's leaves as carrying no
 batch axis), and a `@gen` method binds its instance so (`__get__`).
 `handle_kwargs` gives the function that takes `((args...), {kwargs...})`.
 
-The edits are dense: every site is visited and re-scored. The site-graph
-analysis that makes them incremental (`_EditPlan` in JAX) comes later.
+The edits are incremental, as JAX's are: a site-graph analysis
+(`lang/analysis.py`), run once per specialization and cached, gives each
+edit a plan (`_EditPlan`). A site that the edit cannot reach keeps its
+subtrace as it was, at zero weight and with an empty backward request
+(no density, no launch); a site whose arguments provably did not change
+gets `NoChange` argdiffs (per leaf, so a nested `@gen` callee recurses
+the plan and a `Switch` keeps its same-branch path); a site whose
+callee's own leaves (a closure capture) changed is recomputed densely
+under the callee built afresh; and the retdiff is `NoChange` where no
+changed value reaches the return value. Where the analysis cannot see
+the dataflow, or the request is not known without running anything, the
+fallback plan recomputes every site, which is always correct, and
+`analysis.stats()` counts it with its reason. `StaticRequest` edits
+address by address; `Regenerate`'s backward request is one.
 """
 
+from dataclasses import dataclass
 from typing import Any, Callable, Generic, TypeVar
 
 import torch
@@ -37,11 +50,19 @@ import torch.utils._pytree as pytree
 
 from genjax_tpu_torch.core import checked
 from genjax_tpu_torch.core.choice_map import ChoiceMap, Selection
-from genjax_tpu_torch.core.concepts import Argdiffs, EditRequest, NotSupportedEditRequest, Score, Weight
+from genjax_tpu_torch.core.concepts import (
+    Argdiffs,
+    EditRequest,
+    NotSupportedEditRequest,
+    PrimitiveEditRequest,
+    Score,
+    Weight,
+)
 from genjax_tpu_torch.core.diff import Diff
 from genjax_tpu_torch.core.gfi import GenerativeFunction, Trace, Update
 from genjax_tpu_torch.core.pytree import Closure, Pytree, _Fn, n_leaves
 from genjax_tpu_torch.core.requests import EmptyRequest, Regenerate
+from genjax_tpu_torch.core.staging import to_shape_fn, zeros_on
 from genjax_tpu_torch.core.typing import batch_dims, depth_of, device_of, mark, plain
 from genjax_tpu_torch.distributions.distribution import Distribution, DistributionTrace, _drop
 from genjax_tpu_torch.lang.interop import TraceHandler, handler_context
@@ -161,6 +182,19 @@ class StaticTrace(Generic[R], Trace[R]):
         )
 
 
+#####################################
+# Static (per-address) edit request #
+#####################################
+
+
+@Pytree.dataclass
+class StaticRequest(PrimitiveEditRequest):
+    """A dict of per-address edit sub-requests; an address it does not
+    name gets an `EmptyRequest`."""
+
+    addressed: dict
+
+
 ############
 # Handlers #
 ############
@@ -246,50 +280,308 @@ class GenerateHandler(StaticLangHandler):
         return self.handed(tr)
 
 
-class EditHandler(StaticLangHandler):
-    """Base of the dense edit handlers: each site of the previous trace is
-    edited with the site's part of the request and re-scored; the weights
-    add up, and the discarded choices make the backward `Update`."""
+class AbstractHandler(StaticLangHandler):
+    """Hands the body each site's return value as zeros of its shape on
+    the arguments' device, with no draw (a shape-only call)."""
 
-    def __init__(self, rng: torch.Generator, previous: StaticTrace, n: int | None):
+    def __init__(self):
+        super().__init__(None, None)
+
+    def handle_trace(self, addr, gen_fn, args):
+        return gen_fn.__abstract_call__(*args)
+
+
+class EditHandler(StaticLangHandler):
+    """Base of the edit handlers: each site of the previous trace is kept
+    (where the plan reuses it), recomputed densely under its callee built
+    afresh (where its closure captures changed), or edited with the site's
+    part of the request under the plan's argdiffs. The weights add up."""
+
+    def __init__(self, rng: torch.Generator, previous: StaticTrace, n: "int | tuple | None", plan: "_EditPlan"):
         super().__init__(rng, n)
         self.previous = previous
+        self.plan = plan
         self.weight = torch.zeros((), device=rng.device)
-        self.discards: dict = {}
+        self.bwds: dict = {}
 
-    def site_request(self, addr):
+    def site_request(self, addr) -> EditRequest:
         raise NotImplementedError
+
+    def kept(self, addr) -> Any:
+        """The backward part of a site that the plan keeps."""
+        raise NotImplementedError
+
+    def dense(self, addr, gen_fn, args, subtrace) -> tuple[Trace, Any]:
+        """`(new subtrace, backward part)` of a site recomputed densely."""
+        raise NotImplementedError
+
+    def backward(self, addr, bwd: EditRequest) -> Any:
+        return bwd
 
     def handle_trace(self, addr, gen_fn, args):
         if addr not in self.previous.subtraces:
             raise MissingAddress(addr)
-        tr, w, _, bwd = gen_fn.edit(
-            self.rng, self.previous.subtraces[addr], self.site_request(addr), Diff.unknown_change(args), self.n
-        )
+        subtrace = self.previous.subtraces[addr]
+        if addr in self.plan.reuse:
+            # Out of the edit's reach: the subtrace as it was, zero weight.
+            self.bwds[addr] = self.kept(addr)
+            self.record(addr, subtrace)
+            return subtrace.get_retval()
+        if self.plan.needs_dense(addr, gen_fn, subtrace):
+            # The callee's own leaves (a closure capture built in the body)
+            # changed, which argdiffs cannot say: the callee's edit would
+            # see its captures as they were. Recompute under the callee
+            # built afresh, the old values kept where the request keeps
+            # them; the weight is the change of the score.
+            tr, bwd = self.dense(addr, gen_fn, args, subtrace)
+            self.weight = self.weight + (tr.get_score() - subtrace.get_score())
+            self.bwds[addr] = bwd
+            self.record(addr, tr)
+            return tr.get_retval()
+        # Through the callee built afresh (leaf for leaf the stored one,
+        # under an analyzed plan), with the plan's per-leaf argdiffs.
+        argdiffs = self.plan.site_argdiffs(addr, args)
+        request = self.site_request(addr)
+        if isinstance(request, PrimitiveEditRequest):
+            tr, w, retdiff, bwd = gen_fn.edit(self.rng, subtrace, request, argdiffs, self.n)
+        else:
+            tr, w, retdiff, bwd = request.edit(self.rng, subtrace, argdiffs)
         self.weight = self.weight + w
-        # A callee that answers with another request than an `Update` (a
-        # combinator's `Regenerate`) is undone by its old choices whole.
-        self.discards[addr] = bwd.constraint if isinstance(bwd, Update) else self.previous.subtraces[addr].get_choices()
+        self.bwds[addr] = self.backward(addr, bwd)
         self.record(addr, tr)
-        return tr.get_retval()
+        return Diff.tree_primal(retdiff)
 
 
 class UpdateHandler(EditHandler):
-    def __init__(self, rng, previous, constraint: ChoiceMap):
-        super().__init__(rng, previous, None)
+    def __init__(self, rng, previous, constraint: ChoiceMap, plan: "_EditPlan"):
+        super().__init__(rng, previous, None, plan)
         self.constraint = constraint
 
     def site_request(self, addr):
         return Update(self.constraint(addr))
 
+    def kept(self, addr):
+        return ChoiceMap.empty()
+
+    def dense(self, addr, gen_fn, args, subtrace):
+        return _dense_update(self.rng, gen_fn, self.constraint(addr), args, self.n, subtrace)
+
+    def backward(self, addr, bwd):
+        # A callee that answers with another request than an `Update` (a
+        # combinator's) is undone by its old choices whole: coarser than
+        # its discard, and a valid reverse all the same.
+        return bwd.constraint if isinstance(bwd, Update) else self.previous.subtraces[addr].get_choices()
+
 
 class RegenerateHandler(EditHandler):
-    def __init__(self, rng, previous, selection: Selection, n: int | None):
-        super().__init__(rng, previous, n)
+    def __init__(self, rng, previous, selection: Selection, n: "int | tuple | None", plan: "_EditPlan"):
+        super().__init__(rng, previous, n, plan)
         self.selection = selection
 
     def site_request(self, addr):
         return Regenerate(self.selection(addr))
+
+    def kept(self, addr):
+        return EmptyRequest()
+
+    def dense(self, addr, gen_fn, args, subtrace):
+        sub = self.selection(addr)
+        return _dense_regenerate(self.rng, gen_fn, sub, args, self.n, subtrace), Regenerate(sub)
+
+
+class StaticRequestHandler(EditHandler):
+    """Each address gets its own sub-request (an `EmptyRequest` where the
+    request names none) under unknown argdiffs, as in JAX: the fallback
+    plan, whose comparison of each callee's leaves with the stored one's
+    catches a closure capture that a sibling's edit changed (argdiffs
+    cannot: a callee without arguments would see NoChange)."""
+
+    def __init__(self, rng, previous, addressed: dict, n: "int | tuple | None"):
+        super().__init__(rng, previous, n, _FALLBACK_PLAN)
+        self.addressed = addressed
+
+    def site_request(self, addr):
+        return self.addressed.get(addr, EmptyRequest())
+
+    def dense(self, addr, gen_fn, args, subtrace):
+        request = self.site_request(addr)
+        if isinstance(request, (EmptyRequest, Update)):
+            sub = request.constraint if isinstance(request, Update) else ChoiceMap.empty()
+            tr, discard = _dense_update(self.rng, gen_fn, sub, args, self.n, subtrace)
+            return tr, Update(discard)
+        if isinstance(request, Regenerate):
+            return _dense_regenerate(self.rng, gen_fn, request.selection, args, self.n, subtrace), request
+        raise NotSupportedEditRequest(
+            f"StaticRequest at {addr!r}: the callee's closure captures changed under this edit, and "
+            f"{type(request).__name__} cannot be composed with a dense recompute. Split the edit: "
+            "first Update the upstream value, then apply the request."
+        )
+
+
+def _dense_update(rng, gen_fn, constraint: ChoiceMap, args, n, subtrace) -> tuple[Trace, ChoiceMap]:
+    """A site recomputed under `gen_fn` with its old values where the
+    constraint leaves them: the new subtrace and the discard."""
+    old = subtrace.get_choices()
+    tr, _ = gen_fn.generate(rng, constraint | old, args, n, subtrace)
+    return tr, old.filter(constraint.get_selection())
+
+
+def _dense_regenerate(rng, gen_fn, selection: Selection, args, n, subtrace) -> Trace:
+    """A site recomputed under `gen_fn`: the selected values drawn afresh,
+    the others kept and re-scored."""
+    tr, _ = gen_fn.generate(rng, subtrace.get_choices().filter(~selection), args, n, subtrace)
+    return tr
+
+
+#############
+# Edit plan #
+#############
+
+
+@dataclass(frozen=True)
+class _EditPlan:
+    """The reuse and argdiff plan of one edit (`lang/analysis.py`). The
+    fallback plan (empty, not analyzed) is always correct: it recomputes
+    every site under unknown argdiffs and compares each callee's leaves
+    with the stored callee's when the program runs."""
+
+    reuse: frozenset = frozenset()  # sites kept as they were
+    args_unchanged: frozenset = frozenset()  # edited sites whose arguments did not change
+    retval_static: bool = False  # the model's return value did not change
+    # addr -> a tree of bools over the site's arguments: which leaves may
+    # have changed, so that a `Switch` whose data alone changed keeps its
+    # same-branch edit.
+    argdiff_masks: dict | None = None
+    # Sites whose callee's own leaves (closure captures) this edit reaches:
+    # recomputed densely under the callee built afresh.
+    callee_changed: frozenset = frozenset()
+    analyzed: bool = False
+
+    def site_argdiffs(self, addr, args):
+        if addr in self.args_unchanged:
+            return Diff.no_change(args)
+        mask = (self.argdiff_masks or {}).get(addr)
+        if mask is None:
+            return Diff.unknown_change(args)
+        try:
+            return pytree.tree_map(
+                lambda leaf, m: Diff.unknown_change(leaf) if m else Diff.no_change(leaf), args, mask
+            )
+        except Exception:  # noqa: BLE001 - the structure drifted: coarse is always correct
+            return Diff.unknown_change(args)
+
+    def needs_dense(self, addr, gen_fn, subtrace) -> bool:
+        """Whether `addr` must be recomputed densely under the callee built
+        afresh: the analyzed set, or without analysis a comparison of the
+        callee's leaves with the stored callee's."""
+        if self.analyzed:
+            return addr in self.callee_changed
+        return not _callee_leaves_match(gen_fn, subtrace.get_gen_fn())
+
+
+_FALLBACK_PLAN = _EditPlan()
+
+
+def _callee_leaves_match(new_gf, old_gf) -> bool:
+    """Whether two callees hold the same leaves: one structure, and each
+    leaf the same object or an equal value that the host holds (a number,
+    a CPU tensor). Two distinct device tensors count as different (a
+    comparison would read the device): dense, which is always correct."""
+    if new_gf is old_gf:
+        return True
+    try:
+        new_leaves, new_spec = pytree.tree_flatten(new_gf)
+        old_leaves, old_spec = pytree.tree_flatten(old_gf)
+    except Exception:  # noqa: BLE001
+        return False
+    if new_spec != old_spec or len(new_leaves) != len(old_leaves):
+        return False
+    for a, b in zip(new_leaves, old_leaves):
+        if a is b:
+            continue
+        if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+            if not (
+                isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.device.type == "cpu" and b.device.type == "cpu"
+                and a.shape == b.shape and a.dtype == b.dtype and torch.equal(plain(a), plain(b))
+            ):
+                return False
+            continue
+        try:
+            if a != b:
+                return False
+        except Exception:  # noqa: BLE001
+            return False
+    return True
+
+
+def _site_addresses(touched: frozenset, order: tuple) -> frozenset:
+    """The sites that a request touching the top-level keys `touched`
+    reaches: a site whose address is a path counts where its first key is
+    touched."""
+    return frozenset(a for a in order if (a[0] if isinstance(a, tuple) else a) in touched)
+
+
+def _static_edit_plan(
+    source,
+    primals,
+    trace: StaticTrace,
+    constraint: ChoiceMap | None = None,
+    selection: Selection | None = None,
+    args_changed: bool = True,
+) -> _EditPlan:
+    """The plan of one edit: the sites kept as they were, the per-site
+    argdiffs, and whether the return value is unchanged. Any failure of the
+    analysis gives the fallback plan (counted in `analysis.stats()`):
+    reuse is an optimisation, never needed for correctness."""
+    from genjax_tpu_torch.lang import analysis
+
+    try:
+        graph = analysis.site_graph(source, primals)
+    except Exception as e:  # noqa: BLE001
+        analysis.note_fallback(str(e) or type(e).__name__)
+        return _FALLBACK_PLAN
+    if constraint is not None:
+        touched = analysis.static_touched_addresses(constraint)
+    else:
+        touched = analysis.static_selected_addresses(selection, graph.order)
+    if touched is None:
+        analysis.note_fallback("the request's addresses are not known without running it")
+        return _FALLBACK_PLAN
+    # Only trust the plan where the analysis saw exactly the addresses that
+    # the trace holds (against structure that the run decides).
+    if set(graph.order) != set(trace.subtraces):
+        analysis.note_fallback("the analysis saw other addresses than the trace holds")
+        return _FALLBACK_PLAN
+    key = (touched, args_changed)
+    plan = graph.plans.get(key)
+    if plan is None:
+        plan = graph.plans[key] = _plan_of(graph, _site_addresses(touched, graph.order), args_changed)
+    return plan
+
+
+def _plan_of(graph, touched: frozenset, args_changed: bool) -> _EditPlan:
+    w_set = graph.weight_set(touched, args_changed)
+    # Sites edited only because the request names them: their arguments
+    # did not change, so a nested callee gets NoChange and recurses.
+    args_unchanged = frozenset(
+        a for a in w_set if not (graph.deps[a] & touched) and not (args_changed and a in graph.args_reach)
+    )
+    argdiff_masks, callee_changed = {}, set()
+    for a in w_set - args_unchanged:
+        mask, changed = graph.site_edit_info(a, touched, args_changed)
+        if changed:
+            callee_changed.add(a)
+        elif mask is not None:
+            argdiff_masks[a] = mask
+    return _EditPlan(
+        reuse=frozenset(graph.order) - w_set,
+        args_unchanged=args_unchanged,
+        retval_static=graph.retval_unchanged(touched, args_changed),
+        argdiff_masks=argdiff_masks,
+        callee_changed=frozenset(callee_changed),
+        analyzed=True,
+    )
 
 
 #######################
@@ -346,6 +638,17 @@ class StaticGenerativeFunction(Generic[R], GenerativeFunction[R]):
             if v is not None:
                 object.__setattr__(self, k, v)
         object.__setattr__(self, "__wrapped__", wrapped)
+
+    def __abstract_call__(self, *args) -> Any:
+        """The return value of a call as zeros of its shape, on the
+        arguments' device (`to_shape_fn` of the source: no draw, no device
+        work)."""
+
+        def abstract(*a):
+            with handler_context(AbstractHandler()):
+                return self.source(*a)
+
+        return to_shape_fn(abstract, zeros_on(args))(*args)
 
     def handle_kwargs(self) -> "StaticGenerativeFunction[R]":
         """The same program taking `((args...), {kwargs...})`."""
@@ -434,19 +737,38 @@ class StaticGenerativeFunction(Generic[R], GenerativeFunction[R]):
         new = StaticTrace(
             self, args, _recorded(retval)[0], handler.subtraces, trace.args_batched, trace.retval_batched
         )
-        bwd = Update(ChoiceMap.d(handler.discards))
-        return new, handler.weight, Diff.unknown_change(new.retval), bwd
+        retdiff = Diff.no_change(new.retval) if handler.plan.retval_static else Diff.unknown_change(new.retval)
+        return new, handler.weight, retdiff
 
     def edit_update(self, rng, trace, constraint: ChoiceMap, argdiffs):
         if constraint.static_is_empty() and Diff.static_check_no_change(argdiffs):
             weight = torch.zeros((), device=rng.device)
             return trace, weight, Diff.no_change(trace.get_retval()), Update(ChoiceMap.empty())
-        handler = UpdateHandler(rng, trace, constraint)
-        return self._edited(trace, Diff.tree_primal(argdiffs), handler)
+        primals = Diff.tree_primal(argdiffs)
+        args_changed = not Diff.static_check_no_change(argdiffs)
+        plan = _static_edit_plan(self.source, primals, trace, constraint=constraint, args_changed=args_changed)
+        handler = UpdateHandler(rng, trace, constraint, plan)
+        new, weight, retdiff = self._edited(trace, primals, handler)
+        return new, weight, retdiff, Update(ChoiceMap.d(handler.bwds))
 
     def edit_regenerate(self, rng, trace, selection: Selection, argdiffs, n=None):
-        handler = RegenerateHandler(rng, trace, selection, trace.particle_count() if n is None else n)
-        return self._edited(trace, Diff.tree_primal(argdiffs), handler)
+        from genjax_tpu_torch.core.choice_map import NoneSel
+
+        if isinstance(selection, NoneSel) and Diff.static_check_no_change(argdiffs):
+            weight = torch.zeros((), device=rng.device)
+            return trace, weight, Diff.no_change(trace.get_retval()), Regenerate(selection)
+        primals = Diff.tree_primal(argdiffs)
+        args_changed = not Diff.static_check_no_change(argdiffs)
+        plan = _static_edit_plan(self.source, primals, trace, selection=selection, args_changed=args_changed)
+        handler = RegenerateHandler(rng, trace, selection, trace.particle_count() if n is None else n, plan)
+        new, weight, retdiff = self._edited(trace, primals, handler)
+        return new, weight, retdiff, StaticRequest(handler.bwds)
+
+    def edit_static_request(self, rng, trace, addressed: dict, argdiffs, n=None):
+        primals = Diff.tree_primal(argdiffs)
+        handler = StaticRequestHandler(rng, trace, addressed, trace.particle_count() if n is None else n)
+        new, weight, _ = self._edited(trace, primals, handler)
+        return new, weight, Diff.unknown_change(new.retval), StaticRequest(handler.bwds)
 
     def edit(
         self,
@@ -465,13 +787,14 @@ class StaticGenerativeFunction(Generic[R], GenerativeFunction[R]):
         match edit_request:
             case Update(constraint):
                 return self.edit_update(rng, trace, constraint, argdiffs)
+            case StaticRequest(addressed):
+                return self.edit_static_request(rng, trace, addressed, argdiffs, n)
             case Regenerate(selection):
                 return self.edit_regenerate(rng, trace, selection, argdiffs, n)
             case EmptyRequest():
                 return edit_request.edit(rng, trace, argdiffs)
             case _:
                 raise NotSupportedEditRequest(edit_request)
-
 
 
 def gen(f: Callable[..., Any]) -> StaticGenerativeFunction[Any]:
@@ -486,6 +809,7 @@ __all__ = [
     "AddressReuse",
     "MissingAddress",
     "StaticGenerativeFunction",
+    "StaticRequest",
     "StaticTrace",
     "gen",
 ]

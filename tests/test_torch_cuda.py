@@ -10,7 +10,10 @@ the library path: every distribution at a million draws, the rejection
 samplers, the Dirichlet mixture and stochastic volatility; and the
 adaptive samplers: NUTS with no synchronisation at 8192 chains, ChEES with
 exactly one per step, the elliptical slice loop's host reads against its
-trips, each held against the CPU.
+trips, each held against the CPU; and the incremental edits' plan: no
+synchronisation per Gibbs sweep and one analysis, a CUDA closure argument
+keyed without a host read, and one sweep's weights under the plan equal
+to the dense fallback plan's on the same generator state.
 
 These tests need a CUDA device (the kernel has no CPU mode) and skip
 without one. On a machine with the card and without JAX, run them with
@@ -1102,3 +1105,82 @@ def test_involutive_mh_and_parallel_tempering_never_sync_on_the_card(cuda):
     syncs, out = _count_syncs(lambda: pt.run(rng, target, 20, collect=lambda t: t.get_choices()["mu"],
                                              init_constraint=gx.ChoiceMap.kw(mu=2.0)))
     assert syncs == 0 and _on_card((out.collected, out.perm, out.swap_rates), cuda) and out.collected.shape == (20,)
+
+
+# -- incremental edits: the plan on the card -------------------------------------------------------
+
+
+def _schools_chains(cuda, n_chains: int, centered: bool = False):
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.models import hierarchical as h
+
+    rng = torch.Generator(device=cuda).manual_seed(3)
+    y, sigma = h.EIGHT_SCHOOLS_Y.to(cuda), h.EIGHT_SCHOOLS_SIGMA.to(cuda)
+    model = h.eight_schools_centered if centered else h.eight_schools
+    tr, _ = model.importance(rng, gx.ChoiceMap.kw(ys=y), (sigma,), n=n_chains)
+    latent = "theta" if centered else "z"
+    return rng, tr, [gx.Selection.at[a] for a in ("mu", "log_tau", latent)]
+
+
+def test_the_edit_plan_adds_no_sync_on_the_card(cuda):
+    """Gibbs sweeps of incremental `Regenerate` MH moves: the analysis is
+    cached after the first sweep, and no sweep reads the device."""
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.lang import analysis
+
+    for centered in (False, True):
+        rng, tr, sels = _schools_chains(cuda, 1024, centered)
+        tr = gx.gibbs_sweep(rng, tr, sels)  # the analysis runs here, once
+        before = analysis.stats()
+        syncs, (tr, _) = _count_syncs(lambda: gx.gibbs_chain(rng, tr, sels, 5))
+        after = analysis.stats()
+        assert syncs == 0 and after["misses"] == before["misses"] and after["fallbacks"] == before["fallbacks"]
+        assert after["hits"] - before["hits"] == 15 and tr.get_choices()["mu"].device.type == "cuda"
+
+
+def test_the_cache_keys_a_cuda_closure_leaf_without_a_host_copy(cuda):
+    """A closure's CUDA tensor is keyed by the object and its version: the
+    key reads nothing from the device, and an in-place write is a new key."""
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.lang import analysis
+
+    @gx.gen
+    def model(loc, scale):
+        return gx.normal(loc, scale) @ "x"
+
+    loc = torch.zeros(4096, device=cuda)
+    source = model.partial_apply(loc).source
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # a synchronising call raises
+    try:
+        k1 = analysis.cache_key(source, (torch.ones((), device=cuda),))
+        k2 = analysis.cache_key(source, (torch.ones((), device=cuda),))
+        loc.add_(1.0)
+        k3 = analysis.cache_key(source, (torch.ones((), device=cuda),))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert k1 == k2 and k1 != k3
+
+
+@pytest.mark.parametrize("centered", [False, True], ids=["non_centered", "centered"])
+def test_plan_weights_equal_dense_weights_on_the_card(cuda, centered, monkeypatch):
+    """One sweep's `Regenerate` weights under the plan equal the dense
+    (fallback-plan) weights on the same state and generator, within
+    float32, and so do the proposed traces."""
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.lang import static
+
+    rng, tr, sels = _schools_chains(cuda, 8192, centered)
+    for sel in sels:
+        state = rng.get_state()
+        new, w, _, _ = gx.Regenerate(sel).edit(rng, tr, gx.Diff.no_change(tr.get_args()))
+        rng.set_state(state)
+        with monkeypatch.context() as m:
+            m.setattr(static, "_static_edit_plan", lambda *a, **k: static._FALLBACK_PLAN)
+            dense, w_dense, _, _ = gx.Regenerate(sel).edit(rng, tr, gx.Diff.no_change(tr.get_args()))
+        scale = torch.clamp(w_dense.abs(), min=1.0)
+        assert bool(((w - w_dense).abs() <= 1e-5 * scale).all())
+        for a, b in zip(torch.utils._pytree.tree_leaves(new.get_choices()),
+                        torch.utils._pytree.tree_leaves(dense.get_choices())):
+            assert torch.equal(a, b)
+        tr, _ = gx.mh(rng, tr, gx.Regenerate(sel))
