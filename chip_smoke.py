@@ -247,7 +247,13 @@ CONJUGATE_LML = -0.5 * math.log(4 * math.pi) - 0.25  # log N(1; 0, 2)
 # particles (ImportanceK, the LML through K1, a systematic resample, one
 # Gibbs sweep), 10 runs; I3 `SafeHMC` on the centered model.
 INCREMENTAL_CFG = dict(chains=8_192, burn=100, sweeps=100, sync_sweeps=5, timed_pairs=4, timed_sweeps=20,
-                       particles=1_000_000, rm_runs=10, hmc_eps=0.01, hmc_L=5, hmc_steps=10, p2_pairs=8)
+                       particles=1_000_000, rm_runs=10, hmc_eps=0.01, hmc_L=5, hmc_steps=10, p2_pairs=8,
+                       # I1's floors on each site's moved share, about a quarter of what a
+                       # CPU run at 2048 chains reads, and the centered chains' bounds on the
+                       # correlation of their start with their last draw (0.17 and 0.46 there).
+                       moved_floor={"non-centered": {"mu": 0.1, "log_tau": 0.15, "theta": 0.2},
+                                    "centered": {"mu": 0.05, "log_tau": 0.05, "theta": 0.15}},
+                       start_corr_max={"mu": 0.5, "log_tau": 0.8})
 
 
 def check(ok: bool, what: str) -> None:
@@ -3084,7 +3090,9 @@ def phase_incremental(gx, ops, card: str, dev: str = "cuda") -> None:
     """Incremental edits on the card. I1: MH-within-Gibbs on eight schools
     at 8192 chains (non-centered over mu, log_tau, z from the prior;
     centered over mu, log_tau, theta from the non-centered chains' last
-    state), held against the quadrature oracle; the analysis runs once
+    state), held against the quadrature oracle, each site's moved share
+    above a floor, R-hat under 1.1 on the non-centered chains and the
+    centered chains away from their start; the analysis runs once
     per model (0 cache misses after the first sweep, 0 fallbacks), 0
     syncs per sweep, one sweep's weights under the plan equal to the dense
     weights on the same state and generator; the plan against the dense
@@ -3123,6 +3131,7 @@ def phase_incremental(gx, ops, card: str, dev: str = "cuda") -> None:
         if label == "centered":
             last = traces["non-centered"]
             ch = last.get_choices()
+            start_mu, start_lt = ch["mu"].double().cpu(), ch["log_tau"].double().cpu()
             start = obs | gx.ChoiceMap.kw(mu=per_particle(ch["mu"]), log_tau=per_particle(ch["log_tau"]),
                                           theta=per_particle(last.get_retval()))
             tr, _ = model.importance(rng, start, (sigma,), n=C)
@@ -3149,13 +3158,35 @@ def phase_incremental(gx, ops, card: str, dev: str = "cuda") -> None:
         check(bool(torch.isfinite(thetas).all()) and thetas.shape == (C, cfg["sweeps"], 8), f"I1 {label}: theta draws")
         report = schools_oracle_checks(oracle, mus, taus, thetas, f"I1 {label}")
         rhat = {k: float(split_rhat(v).max()) for k, v in (("mu", mus), ("log_tau", lts), ("theta", thetas))}
+        # Each site's share of (chain, sweep) steps whose value moved: a
+        # stuck kernel fails its floor.
+        moved = {k: float((v[:, 1:] != v[:, :-1]).reshape(C, cfg["sweeps"] - 1, -1).any(-1).double().mean())
+                 for k, v in (("mu", mus), ("log_tau", lts), ("theta", thetas))}
+        floors = cfg["moved_floor"][label]
+        check(all(moved[k] >= floors[k] for k in moved), f"I1 {label}: moved shares {moved} under {floors}")
         if label == "non-centered":
             check(max(rhat.values()) < 1.1, f"I1 {label}: R-hat {rhat}")
+            held = "limit 1.1"
+        else:
+            # Prior-proposal Gibbs does not mix in the funnel (R-hat over
+            # 1.1). The chains start at the non-centered chains' posterior
+            # draws; they must leave them (the correlation across chains
+            # of each start with the last draw under its bound), and then
+            # stay on the oracle's posterior: a kernel that moves and does
+            # not keep the posterior fails the oracle checks.
+            corr = {k: float(torch.corrcoef(torch.stack([a, b[:, -1]]))[0, 1])
+                    for k, a, b in (("mu", start_mu, mus), ("log_tau", start_lt, lts))}
+            check(all(corr[k] < cfg["start_corr_max"][k] for k in corr),
+                  f"I1 {label}: the chains did not leave their start: correlations {corr}")
+            held = (f"reported; the chains left their start: correlation of start and last draw "
+                    f"{', '.join(f'{k} {v:.3f}' for k, v in corr.items())} (limits "
+                    f"{', '.join(f'{k} {v}' for k, v in cfg['start_corr_max'].items())})")
         hits = s2["hits"] - s1["hits"]
         print(f"[{card}] I1 {label} eight schools MH-within-Gibbs, {C} chains, {cfg['burn']} burn-in + "
               f"{cfg['sweeps']} collected sweeps: {run_ms / (cfg['burn'] - 1 + cfg['sweeps']):.3f} ms per sweep; "
-              f"{report}; split R-hat {', '.join(f'{k} {v:.4f}' for k, v in rhat.items())}"
-              f"{' (limit 1.1)' if label == 'non-centered' else ' (reported: the funnel, see PERF.md)'}; "
+              f"{report}; split R-hat {', '.join(f'{k} {v:.4f}' for k, v in rhat.items())} ({held}); "
+              f"moved shares {', '.join(f'{k} {v:.3f}' for k, v in moved.items())} (floors "
+              f"{', '.join(f'{k} {v}' for k, v in floors.items())}); "
               f"analysis: {first} run(s) in the first sweep, {hits} cache hits and 0 misses after it, 0 fallbacks; "
               f"{syncs} syncs over {cfg['sync_sweeps']} sweeps")
 
@@ -3258,9 +3289,10 @@ def phase_incremental(gx, ops, card: str, dev: str = "cuda") -> None:
     print(f"[{card}] I3 SafeHMC over mu and log_tau, centered, {C} chains: retdiff NoChange, "
           f"{cfg['hmc_steps']} MH steps at eps {cfg['hmc_eps']}, L {cfg['hmc_L']}: accept rate {rate:.3f}; "
           f"{diverged} of {C} first moves diverged (the funnel's neck); on the non-centered model it raises")
-    # P2's block move regenerates every site of its mixture, so the plan
-    # keeps none there: its cost is the plan's lookups alone, against the
-    # dense fallback plan in alternating runs.
+    # P2's block move regenerates the mixture's one latent site and
+    # re-scores the observation that reads it, so the plan keeps no site:
+    # against the dense fallback plan in alternating runs, with each one's
+    # density evaluations and launch calls per step.
     m = branching_models(gx, dev)
     mix_chains, _ = m.mixture.importance(rng, gx.ChoiceMap.kw(y=MIX_Y), (), n=BRANCH_CHAINS)
     block = gx.Regenerate(m.block)
@@ -3274,9 +3306,20 @@ def phase_incremental(gx, ops, card: str, dev: str = "cuda") -> None:
 
     times = alternating({"plan": block_steps, "dense": dense_block_steps}, cfg["p2_pairs"])
     p2 = {k: statistics.median(v) / PROFILE_SWEEPS for k, v in times.items()}
+    p2_evals = {}
+    for k, fn in (("plan", block_steps), ("dense", dense_block_steps)):
+        box = [0]
+        with counting_densities(box):
+            fn()
+        p2_evals[k] = box[0] / PROFILE_SWEEPS
+    p2_profs = {k: profiling.trace(fn, PROFILE_SWEEPS) for k, fn in (("plan", block_steps), ("dense", dense_block_steps))}
     print(f"[{card}] P2 block-move MH C={BRANCH_CHAINS} under the plan against the dense fallback plan (alternating, "
           f"{cfg['p2_pairs']} pairs of {PROFILE_SWEEPS} steps, host clock, median): {p2['plan']:.3f} ms against "
-          f"{p2['dense']:.3f} ms per MH step")
+          f"{p2['dense']:.3f} ms per MH step; density evaluations per step {p2_evals['plan']:.1f} against "
+          f"{p2_evals['dense']:.1f}; launch calls per step {p2_profs['plan']['launch_calls_per_step']:.1f} against "
+          f"{p2_profs['dense']['launch_calls_per_step']:.1f}")
+    for k, prof in p2_profs.items():
+        print_profile(card, f"P2 block-move MH step ({k})", prof)
 
     # Logreg HMC's final `Update` of each MH step goes through the plan
     # too: its device items per leapfrog step beside PERF.md §5's 76.1

@@ -26,7 +26,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from genjax_tpu_torch.combinators.dimap import Dimap
-from genjax_tpu_torch.combinators.vmap import _check_indexable, rediff
+from genjax_tpu_torch.combinators.vmap import _check_indexable
 from genjax_tpu_torch.core.checkify import should_check
 from genjax_tpu_torch.core.choice_map import ChoiceMap, NoneSel, Selection
 from genjax_tpu_torch.core.concepts import (
@@ -37,7 +37,7 @@ from genjax_tpu_torch.core.concepts import (
     Score,
     Weight,
 )
-from genjax_tpu_torch.core.diff import Diff
+from genjax_tpu_torch.core.diff import Diff, rediff
 from genjax_tpu_torch.core.gfi import GenerativeFunction, Trace, Update
 from genjax_tpu_torch.core.pytree import Pytree, n_leaves
 from genjax_tpu_torch.core.requests import EmptyRequest, Regenerate

@@ -34,7 +34,7 @@ from genjax_tpu_torch.core.choice_map import (
     statically_unmatchable_at_index_level,
 )
 from genjax_tpu_torch.core.concepts import EditRequest, IndexRequest, NotSupportedEditRequest, Score, Weight
-from genjax_tpu_torch.core.diff import Diff
+from genjax_tpu_torch.core.diff import Diff, rediff
 from genjax_tpu_torch.core.gfi import GenerativeFunction, Trace, Update
 from genjax_tpu_torch.core.mask import Mask
 from genjax_tpu_torch.core.pytree import Pytree, n_leaves
@@ -76,16 +76,6 @@ def _axes_per_leaf(in_axes: Any, tree: Any) -> list:
             raise ValueError(f"vmap: in_axes {in_axes!r} does not match the structure of the arguments")
         return axes
     raise TypeError(f"vmap: in_axes holds {in_axes!r}")
-
-
-def rediff(args: Any, argdiffs: Any) -> Any:
-    """`args` (a slice or a re-layout of `argdiffs`' primals, in one
-    structure) with `argdiffs`' tangents, leaf for leaf; all
-    `UnknownChange` where the structures differ."""
-    try:
-        return Diff.tree_diff(args, Diff.tree_tangent(argdiffs))
-    except Exception:  # noqa: BLE001 - coarse is always correct
-        return Diff.unknown_change(args)
 
 
 def _sum_lanes(x: Any, n: int) -> Any:

@@ -102,6 +102,16 @@ class Diff(Pytree):
         )
 
 
+def rediff(args: Any, argdiffs: Any) -> Any:
+    """`args` (a slice or a re-layout of `argdiffs`' primals, in one
+    structure) with `argdiffs`' tangents, leaf for leaf; all
+    `UnknownChange` where the structures differ."""
+    try:
+        return Diff.tree_diff(args, Diff.tree_tangent(argdiffs))
+    except Exception:  # noqa: BLE001 - coarse is always correct
+        return Diff.unknown_change(args)
+
+
 def incremental(fn):
     """Change propagation at the grain of a whole function:
     `incremental(fn)(handler, primals, tangents)` runs `fn` on the primals

@@ -34,11 +34,15 @@ Where the run cannot see the dataflow, the analysis ends and the edit
 falls back to the dense plan, which is always correct. Each end is
 counted with its reason (`stats()`): a value that reaches Python
 (`bool`, `item`, `int`, ... on a placeholder: the data-dependent control
-flow that JAX cannot stage either), an in-place write or an `out=` into a
-tensor that carries no taint, and any error of the run. Python numbers
-among the arguments are staged as 0-d placeholders, as JAX traces them.
+flow that JAX cannot stage either), any in-place write or `out=` that a
+placeholder takes part in (JAX has no such writes; a view shares its
+base's storage, so a write through one would reach tensors that the run
+cannot name), and any error of the run. Python numbers among the
+arguments are staged as 0-d placeholders, as JAX traces them.
 """
 
+import types
+import weakref
 from collections import Counter
 from dataclasses import dataclass, field
 from typing import Any
@@ -67,7 +71,7 @@ _ESCAPES = frozenset({
 # Device moves keep the placeholder on meta (the dtype part of `to` holds).
 _DEVICE_MOVES = frozenset({"to", "cuda", "cpu"})
 _INPLACE_DUNDERS = frozenset({
-    "__setitem__", "__iadd__", "__isub__", "__imul__", "__itruediv__", "__ifloordiv__", "__imod__",
+    "__setitem__", "__set__", "__iadd__", "__isub__", "__imul__", "__itruediv__", "__ifloordiv__", "__imod__",
     "__ipow__", "__imatmul__", "__iand__", "__ior__", "__ixor__", "__ilshift__", "__irshift__",
 })
 _NO_TAINT = (frozenset(), False)
@@ -86,18 +90,15 @@ class _Tracked(torch.Tensor):
         name = getattr(func, "__name__", "")
         if name in _ESCAPES:
             raise AnalysisEnded(f"a placeholder's value reached Python ({name})")
+        if _writes(name, kwargs):
+            raise AnalysisEnded(f"{name} writes into a tensor in place, which the analysis does not track")
         taint, reads = _taint_of_tree((args, kwargs))
-        target = _written(name, args, kwargs)
-        if target is not None and not all(isinstance(t, _Tracked) for t in target):
-            raise AnalysisEnded(f"{name} writes into a tensor that the analysis does not track")
         if name in _DEVICE_MOVES:
             args, kwargs = _without_devices(name, args, kwargs)
         args, kwargs = pytree.tree_map(_meta_operand, (args, kwargs))
         with DisableTorchFunctionSubclass():
             out = func(*args, **kwargs)
-        for t in target or ():
-            t._taint, t._reads = t._taint | taint, t._reads or reads
-        return _wrap(out, taint, reads, target or ())
+        return _wrap(out, taint, reads)
 
 
 def _track(x: torch.Tensor, taint: frozenset, reads: bool) -> _Tracked:
@@ -119,16 +120,14 @@ def _taint_of_tree(tree: Any) -> tuple[frozenset, bool]:
     return taint, reads
 
 
-def _written(name: str, args: tuple, kwargs: dict) -> tuple | None:
-    """The tensors an in-place operation or an `out=` writes into."""
-    out = kwargs.get("out")
-    if out is not None:
-        return tuple(out) if isinstance(out, (tuple, list)) else (out,)
-    if args and isinstance(args[0], torch.Tensor) and (
-        name in _INPLACE_DUNDERS or (name.endswith("_") and not name.startswith("__"))
-    ):
-        return (args[0],)
-    return None
+def _writes(name: str, kwargs: dict) -> bool:
+    """Whether an operation writes into a tensor: in place, or through
+    `out=`."""
+    return (
+        kwargs.get("out") is not None
+        or name in _INPLACE_DUNDERS
+        or (name.endswith("_") and not name.startswith("__"))
+    )
 
 
 def _without_devices(name: str, args: tuple, kwargs: dict) -> tuple[tuple, dict]:
@@ -154,14 +153,11 @@ def _meta_operand(x: Any) -> Any:
     return x
 
 
-def _wrap(out: Any, taint: frozenset, reads: bool, target: tuple) -> Any:
+def _wrap(out: Any, taint: frozenset, reads: bool) -> Any:
     if isinstance(out, torch.Tensor):
-        for t in target:
-            if out is t:
-                return t
         return _track(out, taint, reads)
     if isinstance(out, (tuple, list)):
-        items = [_wrap(o, taint, reads, target) for o in out]
+        items = [_wrap(o, taint, reads) for o in out]
         if type(out) in (tuple, list):
             return type(out)(items)
         return type(out)(*items) if hasattr(out, "_fields") else type(out)(items)
@@ -197,16 +193,20 @@ class _StageHandler(TraceHandler):
         self.site_args: dict = {}
 
     def handle_trace(self, addr, gen_fn, args):
-        leaves, spec = pytree.tree_flatten((gen_fn, args))
-        leaf_info = tuple(_taint_of(x) for x in leaves)
+        fn_leaves, fn_spec = pytree.tree_flatten(gen_fn)
+        arg_leaves, arg_spec = pytree.tree_flatten(args)
+        leaf_info = tuple(_taint_of(x) for x in fn_leaves + arg_leaves)
         merged = frozenset().union(*(t for t, _ in leaf_info))
         reads = any(a for _, a in leaf_info)
         if addr not in self.deps:  # a site appears once; the first write wins
             self.deps[addr] = merged
             if reads:
                 self.args_reach.add(addr)
-            self.site_args[addr] = (spec, leaf_info)
-        fn, plain_args = pytree.tree_unflatten([_untrack(x) for x in leaves], spec)
+            # The callee by its number of leaves alone: its structure holds
+            # its functions, and their closures the data they capture.
+            self.site_args[addr] = (len(fn_leaves), arg_spec, leaf_info)
+        fn = pytree.tree_unflatten([_untrack(x) for x in fn_leaves], fn_spec)
+        plain_args = pytree.tree_unflatten([_untrack(x) for x in arg_leaves], arg_spec)
         value = fn.__abstract_call__(*plain_args)
         if getattr(gen_fn, "retval_is_value", False):
             out_taint, out_reads = frozenset([addr]), False
@@ -226,7 +226,9 @@ class SiteGraph:
     args_reach: frozenset  # sites whose arguments read the model's arguments
     retval_deps: frozenset  # sites whose values reach the return value
     retval_reads_args: bool  # the model's arguments reach the return value
-    site_args: dict  # addr -> (spec of (callee, args), ((taint, reads_args), ...) per leaf)
+    # addr -> (the callee's number of leaves, the spec of its arguments,
+    # ((taint, reads_args), ...) per leaf of the callee, then of the arguments)
+    site_args: dict
     # (touched, args_changed) -> the edit plan (`lang/static.py`), made once.
     plans: dict = field(default_factory=dict)
 
@@ -258,15 +260,14 @@ class SiteGraph:
         info = self.site_args.get(addr)
         if info is None:
             return None, True
-        spec, leaf_info = info
+        n_callee, spec, leaf_info = info
         changed = [bool(taint & value_changed) or (args_changed and reads) for taint, reads in leaf_info]
+        if any(changed[:n_callee]):
+            return None, True
         try:
-            callee_part, args_part = pytree.tree_unflatten(changed, spec)
+            return pytree.tree_unflatten(changed[n_callee:], spec), False
         except Exception:
             return None, True
-        if any(pytree.tree_leaves(callee_part)):
-            return None, True
-        return args_part, False
 
     def argdiff_mask(self, addr, value_changed: frozenset, args_changed: bool):
         """The per-leaf change mask over `addr`'s arguments, or None."""
@@ -296,72 +297,131 @@ def _analyze(source, args) -> SiteGraph:
 # Cache #
 #########
 
-# A concrete closure argument can steer Python control flow while the
-# source runs (`if flag: ... @ "a"`), so its value is part of the key. A
-# small CPU tensor keeps its bytes in the key; any other tensor is keyed by
-# the object (held strongly, so a recycled `id` cannot alias it) and its
-# `_version`, which every in-place write bumps: the same object at the same
-# version holds the same values, and nothing is read from a CUDA device.
+# A concrete value that the source reads (a closure's argument, a tensor
+# or a flag that its function captures or has as a default) can steer
+# Python control flow while the source runs (`if flag: ... @ "a"`), so its
+# value is part of the key. A small CPU tensor keeps its bytes in the key;
+# any other tensor is keyed by the object and its `_version`, which every
+# in-place write bumps: the same object at the same version holds the same
+# values, and nothing is read from a CUDA device. The key holds such an
+# object by a weak reference: the cache keeps no data alive, and the entry
+# of an object that is gone matches nothing again.
 _VALUE_INLINE_MAX_ELEMS = 128
 # Loops over distinct closure arguments would grow the cache without bound;
 # past this, the oldest entry goes.
 _CACHE_MAX_ENTRIES = 512
+# How far the key follows functions and containers into what a function
+# captures; deeper, an object is keyed by identity.
+_KEY_DEPTH = 8
 
 _CACHE: dict = {}
 _STATS: dict = {"analyses": 0, "hits": 0, "misses": 0, "fallbacks": Counter()}
 
+_PLAIN = (bool, int, float, complex, str, bytes, type, types.CodeType, torch.dtype, torch.device)
 
-class _Held:
-    """A key part that compares by identity and keeps its object alive."""
 
-    __slots__ = ("obj",)
+class _Ref:
+    """A key part that compares by identity. It holds its object by a weak
+    reference where the object takes one (strongly otherwise), so a dead
+    object matches nothing, not even a new one at its old `id`."""
+
+    __slots__ = ("ref", "hash")
 
     def __init__(self, obj):
-        self.obj = obj
+        try:
+            self.ref = weakref.ref(obj)
+        except TypeError:
+            self.ref = lambda: obj
+        self.hash = id(obj)
 
     def __eq__(self, other) -> bool:
-        return isinstance(other, _Held) and other.obj is self.obj
+        if not isinstance(other, _Ref):
+            return False
+        obj = self.ref()
+        return obj is not None and obj is other.ref()
 
     def __hash__(self) -> int:
-        return id(self.obj)
+        return self.hash
 
 
-def _value_key(x: Any) -> Any:
+def _value_key(x: Any, depth: int = _KEY_DEPTH) -> Any:
+    """The key of a value that the source reads: a tensor as above,
+    numbers and strings by value, functions by their code and what they
+    capture, containers and pytrees by their parts, anything else by
+    identity."""
     if isinstance(x, torch.Tensor):
         if x.device.type == "cpu" and 0 < x.numel() <= _VALUE_INLINE_MAX_ELEMS:
             with DisableTorchFunctionSubclass():
                 raw = x.detach().contiguous().view(-1).view(torch.uint8).numpy().tobytes()
             return (tuple(x.shape), x.dtype, raw)
-        return (tuple(x.shape), x.dtype, _Held(x), x._version)
-    if x is None or isinstance(x, (bool, int, float, complex, str)):
+        return (tuple(x.shape), x.dtype, _Ref(x), x._version)
+    if x is None or isinstance(x, _PLAIN):
         return (type(x), x)
-    return (type(x), _Held(x))
+    if depth <= 0:
+        return (type(x), _Ref(x))
+    if isinstance(x, _Fn):
+        x = x.fn
+    if isinstance(x, types.FunctionType):
+        return _fn_key(x, depth - 1)
+    if isinstance(x, (tuple, list)):
+        return (type(x), tuple(_value_key(v, depth - 1) for v in x))
+    if isinstance(x, dict):
+        return (dict, tuple((_value_key(k, depth - 1), _value_key(v, depth - 1)) for k, v in x.items()))
+    node = pytree.SUPPORTED_NODES.get(type(x))
+    if node is not None:  # one level of the node: its context and children
+        children, context = node.flatten_fn(x)
+        return (type(x), _value_key(context, depth - 1), tuple(_value_key(v, depth - 1) for v in children))
+    return (type(x), _Ref(x))
+
+
+def _fn_key(f: types.FunctionType, depth: int) -> tuple:
+    """A function as a trace's structure compares it (`core/pytree.py::_Fn`:
+    the same code and globals, equal defaults and closure cells), with the
+    tensors among its defaults and cells keyed by value as above: a model
+    that builds its callee in its body (`mix(f, g)` at a site) makes a new
+    function object at every run, which JAX stages once per trace and the
+    port would otherwise analyze at every edit."""
+    cells = []
+    for c in f.__closure__ or ():
+        try:
+            v = c.cell_contents
+        except ValueError:  # an empty cell
+            cells.append(("empty",))
+            continue
+        # A function that captures itself (a recursive helper) by its code.
+        cells.append(("self", f.__code__) if v is f else _value_key(v, depth))
+    return (
+        types.FunctionType, f.__code__, _Ref(f.__globals__),
+        _value_key(f.__defaults__, depth), _value_key(f.__kwdefaults__, depth), tuple(cells),
+    )
 
 
 def _aval_key(x: Any) -> Any:
+    """The key of the call's arguments: their structure, with each tensor
+    by its shape and dtype and any other leaf by its type."""
     if isinstance(x, torch.Tensor):
         return (tuple(x.shape), x.dtype)
+    if isinstance(x, (tuple, list)):
+        return (type(x), tuple(_aval_key(v) for v in x))
+    if isinstance(x, dict):
+        return (dict, tuple((_value_key(k), _aval_key(v)) for k, v in x.items()))
+    node = pytree.SUPPORTED_NODES.get(type(x))
+    if node is not None:
+        children, context = node.flatten_fn(x)
+        return (type(x), _value_key(context), tuple(_aval_key(v) for v in children))
     return type(x)
 
 
 def cache_key(source, args) -> tuple:
     """The specialization identity of `(source, args)`, as JAX's
-    `site_graph` keys it: the source's function (held strongly), the
-    structure, shapes, dtypes and values of its applied arguments, and the
-    structure, shapes and dtypes of the call's arguments. The function is
-    compared as a trace's structure compares it (`core/pytree.py::_Fn`:
-    the same code, globals, defaults and closure cells): a model that
-    builds its callee in its body (`mix(f, g)` at a site) makes a new
-    function object at every run, which JAX stages once per trace and the
-    port would otherwise analyze at every edit."""
-    dyn, dyn_spec = pytree.tree_flatten(source.dyn_args)
-    leaves, spec = pytree.tree_flatten(args)
+    `site_graph` keys it: the source's function, the structure, shapes,
+    dtypes and values of its applied arguments (`_value_key`), and the
+    structure, shapes and dtypes of the call's arguments (`_aval_key`)."""
+    fn = source.fn
     return (
-        _Fn(source.fn),
-        dyn_spec,
-        tuple(_value_key(x) for x in dyn),
-        spec,
-        tuple(_aval_key(x) for x in leaves),
+        _fn_key(fn, _KEY_DEPTH) if isinstance(fn, types.FunctionType) else _value_key(fn),
+        _value_key(tuple(source.dyn_args)),
+        _aval_key(args),
     )
 
 
@@ -391,19 +451,21 @@ def site_graph(source, args) -> SiteGraph:
     if hit is None:
         _STATS["misses"] += 1
         _STATS["analyses"] += 1
+        # A failure is kept as its message: an exception's traceback would
+        # hold the frames of the run, and with them the caller's data.
         try:
             hit = _analyze(source, args)
         except AnalysisEnded as e:
-            hit = e
+            hit = str(e)
         except Exception as e:  # noqa: BLE001 - any failure of the run means "dense"
-            hit = AnalysisEnded(f"{type(e).__name__}: {(str(e).splitlines() or [''])[0][:160]}")
+            hit = f"{type(e).__name__}: {(str(e).splitlines() or [''])[0][:160]}"
         while len(_CACHE) >= _CACHE_MAX_ENTRIES:
             _CACHE.pop(next(iter(_CACHE)))
         _CACHE[key] = hit
     else:
         _STATS["hits"] += 1
-    if isinstance(hit, AnalysisEnded):
-        raise hit
+    if isinstance(hit, str):
+        raise AnalysisEnded(hit)
     return hit
 
 

@@ -1162,6 +1162,50 @@ def test_the_cache_keys_a_cuda_closure_leaf_without_a_host_copy(cuda):
     assert k1 == k2 and k1 != k3
 
 
+def test_the_cache_holds_no_cuda_data_alive(cuda):
+    """A CUDA tensor that a model captures, and one that a closure applies,
+    are keyed with no read of the device (an in-place write is a new key)
+    and held by weak references: once the caller drops them and the
+    edited traces, their device memory is free again."""
+    import gc
+
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.lang import analysis
+
+    def run():
+        captured, applied = torch.zeros(1 << 20, device=cuda), torch.zeros(1 << 20, device=cuda)
+
+        @gx.gen
+        def model(data, mu):
+            x = gx.normal(mu + captured[0], 1.0) @ "x"
+            return gx.normal(x + data[0], 1.0) @ "y"
+
+        source = model.partial_apply(applied).source
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # a synchronising call raises
+        try:
+            k1 = analysis.cache_key(source, (torch.zeros((), device=cuda),))
+            k2 = analysis.cache_key(source, (torch.zeros((), device=cuda),))
+            captured.add_(1.0)
+            k3 = analysis.cache_key(source, (torch.zeros((), device=cuda),))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert k1 == k2 and k1 != k3
+        rng = torch.Generator(device=cuda).manual_seed(0)
+        tr = model.partial_apply(applied).simulate(rng, (torch.zeros((), device=cuda),), n=64)
+        before = analysis.stats()["misses"]
+        gx.mh(rng, tr, gx.Regenerate(gx.Selection.at["x"]))
+        assert analysis.stats()["misses"] == before + 1
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    run()
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda) - base < (1 << 20)
+
+
 @pytest.mark.parametrize("centered", [False, True], ids=["non_centered", "centered"])
 def test_plan_weights_equal_dense_weights_on_the_card(cuda, centered, monkeypatch):
     """One sweep's `Regenerate` weights under the plan equal the dense

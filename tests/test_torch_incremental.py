@@ -761,6 +761,65 @@ def test_the_key_holds_a_tensor_closure_leaf_by_its_version():
                                                                      (0.0,))
 
 
+def _captured_flag_model(flag, where):
+    """`t_steered` with its flag captured in a closure cell or held as a
+    default, not applied as an argument."""
+    if where == "default":
+        @T.gen
+        def model(mu, flag=flag):
+            x = T.normal(mu, 1.0) @ "x"
+            return T.normal(x, 1.0) @ "y" if flag[0] > 0 else T.normal(0.0, 1.0) @ "y"
+        return model
+
+    @T.gen
+    def model(mu):
+        x = T.normal(mu, 1.0) @ "x"
+        return T.normal(x, 1.0) @ "y" if flag[0] > 0 else T.normal(0.0, 1.0) @ "y"
+    return model
+
+
+@pytest.mark.parametrize("where,n", [("cell", 1), ("cell", 200), ("default", 1), ("default", 200)],
+                         ids=["cell_bytes", "cell_version", "default_bytes", "default_version"])
+def test_a_captured_flag_changed_in_place_is_a_new_key(where, n):
+    """A tensor that the source captures (a closure cell, a default) and
+    reads to steer its control flow is keyed by value (by its bytes up to
+    128 elements, by the object and its `_version` beyond): after an
+    in-place write, `y` reads `x`, and an edit of `x` re-scores it, with
+    JAX's weight for the steered model."""
+    flag = torch.zeros(n)
+    tm = _captured_flag_model(flag, where)
+    _update_x(j_steered.partial_apply(False), tm, 0.3, 2.0)
+    flag[0] = 1.0
+    _update_x(j_steered.partial_apply(True), tm, 0.3, 2.0)
+
+
+def test_the_cache_keeps_no_closure_data_alive():
+    """The key holds a closure's tensors, and what the source captures, by
+    weak references: once the caller drops them, nothing of the cache
+    keeps them (a loop over fresh data on a card would hold its memory)."""
+    import gc
+    import weakref
+
+    def run():
+        data, captured = torch.zeros(200), torch.ones(300)
+
+        @T.gen
+        def model(d, mu):
+            x = T.normal(mu + captured[0] * 0.0, 1.0) @ "x"
+            return T.normal(x + d[0] * 0.0, 1.0) @ "y"
+
+        closure = model.partial_apply(data)
+        tr = closure.simulate(_rng(), (torch.tensor(0.0),))
+        before = analysis.stats()["misses"]
+        tr.update(_rng(1), T.ChoiceMap.kw(x=0.5))
+        assert analysis.stats()["misses"] == before + 1
+        return weakref.ref(data), weakref.ref(captured)
+
+    refs = run()
+    gc.collect()
+    assert all(r() is None for r in refs)
+
+
 # -- the 200-address model ----------------------------------------------------------------------------
 
 
@@ -853,26 +912,62 @@ def test_a_trouble_spot_falls_back_and_is_counted(body, reason):
     _fallback_case(body, reason)
 
 
-def test_inplace_into_a_tracked_tensor_merges_its_taint():
-    """`z = a * 0; z += c` reads both sites, as JAX's `a * 0 + c`."""
+def _plus_equals(buf, c):
+    buf += c
+    return buf
+
+
+def _write_through_a_view(buf, c):
+    buf[1:].copy_(c.expand(1))
+    return buf
+
+
+def _write_into_a_viewed_base(buf, c):
+    tail = buf[1:]
+    buf.mul_(0.0)
+    return tail + c
+
+
+@pytest.mark.parametrize("write", [_plus_equals, _write_through_a_view, _write_into_a_viewed_base],
+                         ids=["plus_equals", "through_a_view", "into_a_viewed_base"])
+def test_an_inplace_write_into_a_placeholder_falls_back_and_rescores_its_readers(write):
+    """A write into a tracked tensor, also through a view that shares its
+    base's storage, ends the analysis: the edit of `c` falls back, is
+    counted, and re-scores `d`, with JAX's weight for the same dataflow
+    (`buf.at[1:].set(c)` and the like)."""
+    j_writes = {
+        _plus_equals: lambda buf, c: buf + c,
+        _write_through_a_view: lambda buf, c: buf.at[1:].set(c),
+        _write_into_a_viewed_base: lambda buf, c: buf[1:] * 0.0 + c,
+    }
 
     @J.gen
     def jm(mu):
         a = J.normal(mu, 1.0) @ "a"
         c = J.normal(0.0, 1.0) @ "c"
-        z = a * 0.0 + c
-        return J.normal(z, 1.0) @ "d"
+        buf = j_writes[write](a * jnp.ones(2), c)
+        return J.normal(buf.sum(), 1.0) @ "d"
 
     @T.gen
     def tm(mu):
         a = T.normal(mu, 1.0) @ "a"
         c = T.normal(0.0, 1.0) @ "c"
-        z = a * 0.0
-        z += c
-        return T.normal(z, 1.0) @ "d"
+        buf = write(a * torch.ones(2), c)
+        return T.normal(buf.sum(), 1.0) @ "d"
 
-    _, tg = _same_graph(jm, tm, (0.0,), (0.0,))
-    assert tg.deps["d"] == frozenset({"a", "c"})
+    vals = dict(a=0.4, c=-0.2, d=0.9)
+    jtr, _ = jm.generate(jax.random.key(0), J.ChoiceMap.kw(**{k: jnp.float32(v) for k, v in vals.items()}), (0.0,))
+    ttr, _ = tm.generate(_rng(), T.ChoiceMap.kw(**{k: torch.tensor(v) for k, v in vals.items()}), (0.0,))
+    _close(ttr.get_score(), jtr.get_score())
+    before = analysis.stats()["fallbacks"]
+    tnew, tw, _, _ = ttr.update(_rng(1), T.ChoiceMap.kw(c=1.3))
+    after = analysis.stats()["fallbacks"]
+    grew = [r for r in after if after[r] > before.get(r, 0)]
+    assert len(grew) == 1 and "in place" in grew[0], grew
+    _, jw, _, _ = jtr.update(jax.random.key(1), J.ChoiceMap.kw(c=jnp.float32(1.3)))
+    _close(tw, jw)
+    score, _ = tm.assess(tnew.get_choices(), (0.0,))
+    _close(tw, score - ttr.get_score())
 
 
 def test_python_number_arguments_are_staged():
