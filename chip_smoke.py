@@ -87,7 +87,16 @@ at 8192 chains under the edit plan (the analysis run once per model, 0
 fallbacks, 0 syncs per sweep, the weights equal to the dense plan's)
 against the quadrature oracle, timed against the dense fallback plan;
 resample-move at a million particles with the LML through K1; `SafeHMC`.
-Every phase raises on failure; nothing is caught.
+Then the parallel layer (`phase_parallel`) at one rank over NCCL in this
+process, each driver against the stitched dense run from the same
+generators: `ShardedSMC` at K=1,000,000 (20 rounds, every round
+resampling; the sharded LML and ESS through K1) timed beside the dense
+round, `GridSMC` at 8 x 131,072, sharded logreg HMC at C=8192 beside the
+dense run, `sharded_pt_run` on T1's ladder, `sharded_svgd` at SV1's width;
+then `entry.dryrun_multichip` on 1 rank (NCCL) and on 2 ranks sharing
+the card (gloo; the neighbour exchange and the all-gather fallback at
+K=65,536), with each section's collectives. Every phase raises on
+failure; nothing is caught.
 
 Run from the repository root, with one CUDA card visible:
 
@@ -254,6 +263,22 @@ INCREMENTAL_CFG = dict(chains=8_192, burn=100, sweeps=100, sync_sweeps=5, timed_
                        moved_floor={"non-centered": {"mu": 0.1, "log_tau": 0.15, "theta": 0.2},
                                     "centered": {"mu": 0.05, "log_tau": 0.05, "theta": 0.15}},
                        start_corr_max={"mu": 0.5, "log_tau": 0.8})
+
+# The parallel layer (`phase_parallel`), at world size 1 over NCCL in this
+# process: PS1 `ShardedSMC` on the conjugate model at K=1M, 20 rounds, every
+# round resampling (ess_threshold 2, as `dryrun_multichip` runs it), timed
+# beside S3's dense round, whole and piece by piece (`piece_pairs`
+# alternating pairs), and profiled; PG1 `GridSMC` at C=8 x K=131072, every
+# chain resampling; K1 against its plain twin on PS1's shard weights, each
+# PG1 row and the pooled vector of chain LMLs; PC1
+# `sharded_mh_chains` with logreg HMC at config 4's width, timed beside the
+# dense `run_chains`; PT1 `sharded_pt_run` on T1's bimodal ladder; PV1
+# `sharded_svgd` at SV1's width, 500 steps with an explicit bandwidth,
+# timed beside the dense `svgd`. Then `entry.dryrun_multichip` on 1 rank
+# (NCCL) and on 2 ranks sharing the card (gloo; K=65536: the neighbour
+# exchange, the all-gather fallback, the host staging).
+PARALLEL_CFG = dict(rounds=20, grid_chains=8, grid_particles=131_072, timed_pairs=3, piece_pairs=5, pt_sweeps=1_500,
+                    pt_burn=500, pt_check_sweeps=20, sv_steps=500, sv_bandwidth=1.0, dryrun_ranks=(1, 2))
 
 
 def check(ok: bool, what: str) -> None:
@@ -3335,6 +3360,306 @@ def phase_incremental(gx, ops, card: str, dev: str = "cuda") -> None:
           f"smoke {analysis.stats()}")
 
 
+def uncounted(ops, fn):
+    """`fn()` with the K1 launch counts left as they were: a reference or
+    the dense side of a comparison is not the path under test."""
+    before = counted(ops)
+    try:
+        return fn()
+    finally:
+        ops.fused_logsumexp.launches, ops.fused_logsumexp_ess.launches = before
+
+
+def run_through(round_):
+    """Run a round written as a generator (it yields after each piece) to
+    its end: its return value."""
+    while True:
+        try:
+            next(round_)
+        except StopIteration as done:
+            return done.value
+
+
+def piece_ms(round_) -> dict:
+    """Host-clock ms of each piece of a round written as a generator, each
+    between two device synchronisations."""
+    times = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for name in round_:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        times[name] = 1e3 * (t1 - t0)
+        t0 = t1
+    return times
+
+
+def phase_parallel(gx, ops, card: str) -> None:
+    """The parallel layer at world size 1 (NCCL on the card) in this process,
+    each driver held against the stitched dense run from the same
+    generators (at one rank: the dense driver fed `fork(rng, 1)[0]`), K1
+    held against its plain twin on the path's own weights, then
+    `dryrun_multichip` on 1 and 2 ranks. The references' and the dense
+    sides' K1 launches are not counted on the path."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from genjax_tpu_torch.adev.core import fork
+    from genjax_tpu_torch.entry import dryrun_multichip
+    from genjax_tpu_torch.inference.mcmc import run_chains
+    from genjax_tpu_torch.inference.parallel_tempering import ParallelTempering
+    from genjax_tpu_torch.inference.requests import HMC, GaussianDrift
+    from genjax_tpu_torch.inference.svgd import svgd
+    from genjax_tpu_torch.models import conjugate, logreg
+    from genjax_tpu_torch.parallel import (
+        GridSMC,
+        ShardedSMC,
+        grid_mesh,
+        particle_mesh,
+        pooled_lml,
+        sharded_mh_chains,
+        sharded_pt_run,
+        sharded_svgd,
+    )
+    from genjax_tpu_torch import profiling
+    from genjax_tpu_torch.parallel import certify
+    from genjax_tpu_torch.parallel import collectives as C
+
+    t_phase = time.perf_counter()
+    cfg, dev = PARALLEL_CFG, "cuda"
+
+    def twin(seed: int) -> tuple[torch.Generator, torch.Generator]:
+        return torch.Generator(device=dev).manual_seed(seed), torch.Generator(device=dev).manual_seed(seed)
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(torch.utils._pytree.tree_leaves(a), torch.utils._pytree.tree_leaves(b))
+                   if isinstance(x, torch.Tensor))
+
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            pmesh = particle_mesh(device_type=dev)
+            C.reset_stats()
+
+            # PS1: ShardedSMC rounds against the dense S3 round.
+            c = conjugate.BenchConfig()
+            target, driver = c.target(), c.driver()
+            smc = ShardedSMC(n_particles=c.n_particles, mesh=pmesh, ess_threshold=c.ess_threshold)
+            select_x = gx.Regenerate(gx.Selection.at["x"])
+
+            # Each round yields after each piece, for `piece_ms`; the dense
+            # one is `conjugate.smc_round`'s, piece for piece.
+            def sharded_round(rng, shard=None):
+                col = smc.init(rng, target)
+                if shard is not None:
+                    shard.append(col.get_log_weights())
+                yield "init"
+                lml = smc.lml(col)
+                yield "lml"
+                ess0 = smc.ess(col)
+                yield "ess"
+                col = smc.maybe_resample(rng, col)
+                yield "maybe_resample"
+                col = smc.rejuvenate(rng, col, select_x)
+                yield "rejuvenate"
+                mean = C.all_reduce(col.get_particles().get_choices()["x"].sum(), pmesh, "particles") / c.n_particles
+                yield "mean"
+                return lml, ess0, mean, col
+
+            def dense_round(rng):
+                col = driver.init(rng, target)
+                yield "init"
+                lml = col.get_log_marginal_likelihood_estimate()
+                yield "lml"
+                ess0 = col.get_ess()
+                yield "ess"
+                col = driver.maybe_resample(rng, col)
+                yield "maybe_resample"
+                col = driver.rejuvenate(rng, col, select_x)
+                yield "rejuvenate"
+                mean = col.get_particles().get_choices()["x"].mean()
+                yield "mean"
+                return lml, ess0, mean, col
+
+            rng, rng_ref = twin(41)
+            shard = []
+            lml, _, _, col = run_through(sharded_round(rng, shard))
+            k1_ps1, _ = k1_against_plain(ops, shard.pop())
+            ref = certify.StitchedSMC(c.n_particles, 1, c.ess_threshold)
+            blocks = ref.init(rng_ref, target)
+            ref_lml = float(uncounted(ops, lambda: ref.lml(blocks)))
+            blocks = uncounted(ops, lambda: ref.rejuvenate(rng_ref, ref.maybe_resample(rng_ref, blocks), select_x))
+            check(same(col, blocks[0]), "PS1: round 1's particles and weights differ from the dense round from fork(rng, 1)[0]")
+            lml_gap = abs(float(lml) - ref_lml)
+            check(lml_gap <= 1e-6 * max(1.0, abs(ref_lml)), f"PS1: round 1's LML {float(lml)} against the dense {ref_lml}")
+            del col, blocks
+            rounds = [run_through(sharded_round(rng))[:3] for _ in range(cfg["rounds"])]
+            ms = alternating({"sharded": lambda: run_through(sharded_round(rng)),
+                              "dense": lambda: uncounted(ops, lambda: conjugate.smc_round(rng, driver, target))},
+                             cfg["timed_pairs"])
+            pieces = {"sharded": [], "dense": []}
+            for i in range(cfg["piece_pairs"] + 1):
+                split = {"sharded": piece_ms(sharded_round(rng)),
+                         "dense": uncounted(ops, lambda: piece_ms(dense_round(rng)))}
+                for name, p in split.items():
+                    if i:
+                        pieces[name].append(p)
+            print(f"PS1 ShardedSMC, 1 rank (nccl), K={c.n_particles}, {cfg['rounds']} rounds, each resampling: "
+                  + within_se([float(r[0]) for r in rounds], c.exact_lml(), "LML") + "; "
+                  + within_se([float(r[2]) for r in rounds], c.posterior_mean(), "posterior mean of x")
+                  + f"; round 1's particles and weights equal to the dense round from fork(rng, 1)[0], bit for bit, its "
+                  f"LML {lml_gap:.2e} from the dense logsumexp - log K (K1's pair against its single entry point)")
+            print(f"[{card}] PS1 ms per round: sharded {statistics.median(ms['sharded']):.3f}, dense S3 "
+                  f"{statistics.median(ms['dense']):.3f} (medians of {cfg['timed_pairs']} alternating pairs: "
+                  f"{', '.join(f'{a:.3f}/{b:.3f}' for a, b in zip(ms['sharded'], ms['dense']))}); the layer's cost "
+                  f"{statistics.median(ms['sharded']) - statistics.median(ms['dense']):.3f} ms per round")
+            med = {name: {k: statistics.median(p[k] for p in runs) for k in runs[0]} for name, runs in pieces.items()}
+            print(f"[{card}] PS1 ms per piece, sharded/dense (medians of {cfg['piece_pairs']} alternating pairs, a "
+                  "device sync after each piece): " + ", ".join(
+                      f"{k} {med['sharded'][k]:.3f}/{med['dense'][k]:.3f}" for k in med["sharded"])
+                  + f"; sums {sum(med['sharded'].values()):.3f}/{sum(med['dense'].values()):.3f}")
+            print_profile(card, "PS1 sharded round", profiling.trace(lambda: run_through(sharded_round(rng)), 1))
+            print_profile(card, "PS1's dense S3 round, same process",
+                          uncounted(ops, lambda: profiling.trace(lambda: conjugate.smc_round(rng, driver, target), 1)))
+
+            # PG1: GridSMC at C=8 x K=131072 on a 1 x 1 mesh.
+            gmesh = grid_mesh(1, 1, device_type=dev)
+            grid = GridSMC(n_chains=cfg["grid_chains"], n_particles=cfg["grid_particles"], mesh=gmesh, ess_threshold=2.0)
+            rng, rng_ref = twin(42)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gcol = grid.init(rng, target)
+            lmls, esss = grid.per_chain_lml(gcol), grid.per_chain_ess(gcol)
+            grid_lw = gcol.get_log_weights()
+            gcol = grid.rejuvenate(rng, grid.maybe_resample(rng, gcol), select_x)
+            torch.cuda.synchronize()
+            grid_ms = 1e3 * (time.perf_counter() - t0)
+            k1_pg1 = max(k1_against_plain(ops, row)[0] for row in grid_lw)
+            del grid_lw
+            gref = certify.StitchedGrid(cfg["grid_chains"], cfg["grid_particles"], 1, 1)
+            gblocks = gref.init(rng_ref, target)
+            u0 = torch.rand(cfg["grid_chains"], generator=rng_ref, device=dev)
+            gblocks = uncounted(ops, lambda: gref.rejuvenate(rng_ref, gref.resample(u0, gblocks), select_x))
+            check(same(gcol, gblocks[(0, 0)]), "PG1: the grid round differs from the stitched dense run")
+            k = cfg["grid_particles"]
+            ses = [math.sqrt(max(k / float(e) - 1.0, 0.0) / k) for e in esss]
+            worst = max(abs(float(v) - c.exact_lml()) / se for v, se in zip(lmls, ses))
+            check(worst < 5.0, f"PG1: a chain's LML {worst:.2f} SE off log N(1; 0, sqrt 2)")
+            pooled = float(pooled_lml(lmls, gmesh, "chains"))
+            k1_pooled, _ = k1_against_plain(ops, lmls)
+            print(f"[{card}] PG1 GridSMC C={cfg['grid_chains']} x K={k}: every chain's LML within {worst:.2f} SE "
+                  f"(limit 5; SE from each chain's ESS) of {c.exact_lml():.6f}; pooled LML {pooled:.6f}; one round "
+                  f"(init, LML, ESS, maybe_resample resampling every chain, rejuvenate) {grid_ms:.1f} ms; equal to the "
+                  "stitched dense run, bit for bit")
+            print(f"[{card}] K1 == plain on the parallel path's own weights, |err| / max(1, |plain|) (tolerance 1e-5): "
+                  f"PS1's shard (N={c.n_particles}) {k1_ps1:.3e}; PG1's worst of {cfg['grid_chains']} rows (N={k}) "
+                  f"{k1_pg1:.3e}; the pooled chain LMLs (N={cfg['grid_chains']}) {k1_pooled:.3e}")
+            del gcol, gblocks
+
+            # PC1: logreg HMC chains against the dense run from the fork.
+            h = logreg.BenchConfig()
+            X, ys = h.data(dev)
+            cmesh = particle_mesh(axis_name="chains", device_type=dev)
+            traces = logreg.init_chains(torch.Generator(device=dev).manual_seed(43), X, ys, h.n_chains)
+            req = HMC(gx.Selection.at["w"], h.eps, L=h.L)
+            rng, rng_ref = twin(44)
+            finals, accs = sharded_mh_chains(rng, traces, req, h.n_steps, cmesh)
+            d_finals, d_accs = run_chains(fork(rng_ref, 1)[0], traces, req, h.n_steps)
+            check(torch.equal(finals.get_choices()["w"], d_finals.get_choices()["w"]) and torch.equal(accs, d_accs),
+                  "PC1: sharded HMC chains differ from the dense run from fork(rng, 1)[0]")
+            ms = alternating({"sharded": lambda: sharded_mh_chains(rng, traces, req, h.n_steps, cmesh),
+                              "dense": lambda: run_chains(rng, traces, req, h.n_steps)}, cfg["timed_pairs"])
+            print(f"[{card}] PC1 sharded_mh_chains, logreg HMC C={h.n_chains} N={h.n_data} D={h.dim} eps {h.eps} L={h.L} "
+                  f"S={h.n_steps}: equal to the dense run from the fork, bit for bit; accept rate "
+                  f"{float(accs.float().mean()):.3f}; ms per run sharded {statistics.median(ms['sharded']):.3f}, dense "
+                  f"{statistics.median(ms['dense']):.3f} (medians of {cfg['timed_pairs']} alternating pairs; PERF.md "
+                  f"section 5's dense run: 109.114 ms, NVIDIA H100 80GB HBM3, 700.00 W)")
+
+            # PT1: T1's bimodal ladder.
+            @gx.gen
+            def bimodal():
+                mu = gx.normal(0.0, 2.0) @ "mu"
+                _ = gx.normal(mu * mu, 0.3) @ "y"
+
+            btarget = gx.Target(bimodal, (), gx.ChoiceMap.kw(y=4.0))
+            pt = ParallelTempering(betas=torch.tensor([1.0, 0.5, 0.25, 0.1, 0.02], device=dev),
+                                   request=GaussianDrift(gx.Selection.at["mu"], 0.5), n_moves=2)
+            rmesh = particle_mesh(axis_name="replicas", device_type=dev)
+            collect = lambda t: t.get_choices()["mu"]  # noqa: E731
+            start = gx.ChoiceMap.kw(mu=2.0)
+            rng, rng_ref = twin(45)
+            res = sharded_pt_run(rng, pt, btarget, cfg["pt_check_sweeps"], rmesh, collect=collect, init_constraint=start)
+            _, res_ref = uncounted(ops, lambda: certify.stitched_pt(rng_ref, pt, btarget, cfg["pt_check_sweeps"], 1,
+                                                                    collect=collect, init_constraint=start))
+            check(torch.equal(res.perm, res_ref.perm) and torch.equal(res.collected, res_ref.collected),
+                  "PT1: the short run differs from the stitched dense run")
+            times, (out,) = timed_runs(lambda: sharded_pt_run(rng, pt, btarget, cfg["pt_sweeps"], rmesh, collect=collect,
+                                                              init_constraint=start), 1, warm=False)
+            neg = float((out.collected[cfg["pt_burn"]:] < 0.0).float().mean())
+            check(0.1 < neg < 0.9 and torch.equal(torch.sort(out.perm).values.cpu(), torch.arange(5))
+                  and bool((out.swap_rates > 0.0).all()),
+                  f"PT1: share of cold draws below 0 {neg}, perm {out.perm.tolist()}, swap rates {out.swap_rates.tolist()}")
+            print(f"[{card}] PT1 sharded_pt_run, T1's ladder (5 replicas, 1 rank), {cfg['pt_sweeps']} sweeps x 2 moves: "
+                  f"{times[0] / cfg['pt_sweeps']:.3f} ms per sweep; the cold chain below 0 in {neg:.3f} of its draws "
+                  f"after {cfg['pt_burn']} (both modes: bound (0.1, 0.9)); swap rates "
+                  f"{', '.join(f'{v:.3f}' for v in out.swap_rates.tolist())}")
+
+            # PV1: SVGD at SV1's width with an explicit bandwidth.
+            s = SVGD_CFG
+            Xs, yss = logreg.simulate_logreg_data(torch.Generator(device=dev).manual_seed(5), s["n_data"], s["dim"])[:2]
+            sv_args = (logreg.logistic_regression, (Xs,), gx.ChoiceMap.kw(ys=yss), gx.Selection.at["w"])
+            kw = dict(n_particles=s["n_particles"], n_steps=cfg["sv_steps"], step_size=s["step_size"],
+                      bandwidth=cfg["sv_bandwidth"])
+            rng, rng_ref = twin(46)
+
+            def timed(fn):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                return out, 1e3 * (time.perf_counter() - t0) / cfg["sv_steps"]
+
+            # The check's two runs are the first timed pair; the second runs
+            # the other way round.
+            (straces, _), sharded_ms = timed(lambda: sharded_svgd(rng, *sv_args, mesh=pmesh, **kw))
+            (dtraces, _), dense_ms = timed(lambda: svgd(fork(rng_ref, 1)[0], *sv_args, **kw))
+            w, wd = straces.get_choices()["w"], dtraces.get_choices()["w"]
+            gap = float((w - wd).abs().max() / wd.abs().max())
+            check(gap <= 1e-6, f"PV1: the sharded transport is {gap:.2e} of max |x| off the dense one (limit 1e-6)")
+            dense_ms = [dense_ms, timed(lambda: svgd(rng, *sv_args, **kw))[1]]
+            sharded_ms = [sharded_ms, timed(lambda: sharded_svgd(rng, *sv_args, mesh=pmesh, **kw))[1]]
+            print(f"[{card}] PV1 sharded_svgd N={s['n_particles']} D={s['dim']} ({s['n_data']} data), {cfg['sv_steps']} "
+                  f"steps, bandwidth {cfg['sv_bandwidth']}: {gap:.2e} of max |x| from the dense svgd (limit 1e-6); ms per "
+                  f"step sharded {', '.join(f'{v:.3f}' for v in sharded_ms)}, dense "
+                  f"{', '.join(f'{v:.3f}' for v in dense_ms)} (2 pairs, the first with the first run's set-up; SV1 "
+                  f"2.05-4.14 ms)")
+            stats = C.stats()
+        finally:
+            dist.destroy_process_group()
+    print(f"[{card}] the collectives of the one-rank phases (NCCL): " + "; ".join(
+        f"{axis}: " + ", ".join(f"{k} {v['calls']} calls {v['bytes']} B" for k, v in kinds.items() if v["calls"])
+        for axis, kinds in stats.items()))
+
+    # The dry runs spawn their ranks; both run at once, on the one card.
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(cfg["dryrun_ranks"])) as pool:
+        runs = {n: pool.submit(dryrun_multichip, n, dev) for n in cfg["dryrun_ranks"]}
+        runs = {n: f.result() for n, f in runs.items()}
+    for n, results in runs.items():
+        for r in results:
+            print(f"[{card}] dryrun_multichip({n}) rank {r['rank']}: " + "; ".join(
+                f"{section}: " + ", ".join(f"{axis} " + " ".join(f"{k} {v['calls']}x{v['bytes']}B"
+                                                               for k, v in kinds.items() if v["calls"])
+                                           for axis, kinds in st.items())
+                for section, st in r["stats"].items()))
+    print(f"[{card}] dryrun_multichip at {', '.join(map(str, runs))} ranks, at once: {time.perf_counter() - t0:.1f} s")
+    print(f"[{card}] phase_parallel wall: {time.perf_counter() - t_phase:.1f} s")
+
+
 def cost_line(card: str, label: str, steps: int, on: list, off: list, per_run: int) -> None:
     """Print the checks' cost on one path from alternating runs with the
     checks on and off (ms per run) and the wrapped calls of one run."""
@@ -3416,6 +3741,7 @@ def main() -> None:
     paths["aux"] = drive(lambda: phase_aux(gx, ops, card))
     print(f"[{card}] phase_aux wall: {time.perf_counter() - t_aux:.1f} s")
     paths["incremental"] = drive(lambda: phase_incremental(gx, ops, card))
+    paths["parallel"] = drive(lambda: phase_parallel(gx, ops, card))
     backward["grad_max_abs_err"] = max(backward["grad_max_abs_err"], *vi_grad_err)
     launches = {name: sum(p[name] for p in paths.values()) for name in ("logsumexp", "logsumexp_ess")}
     for name, count in paths["particle"].items():
@@ -3433,6 +3759,7 @@ def main() -> None:
     for name, count in paths["aux"].items():
         check(count > 0, f"the auxiliary layer's path (the resumed SMC state, SIR, time travel) launched no {name} kernel")
     check(paths["incremental"]["logsumexp"] > 0, "the incremental edits' path (I2's LML) launched no logsumexp kernel")
+    check(paths["parallel"]["logsumexp_ess"] > 0, "the parallel path (the sharded LML and ESS) launched no logsumexp_ess kernel")
     print("kernel launches on the main paths: " + ", ".join(
         f"{name} {count} (" + ", ".join(f"{path} path {p[name]}" for path, p in paths.items()) + ")"
         for name, count in launches.items()))

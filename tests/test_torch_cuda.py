@@ -1228,3 +1228,69 @@ def test_plan_weights_equal_dense_weights_on_the_card(cuda, centered, monkeypatc
                         torch.utils._pytree.tree_leaves(dense.get_choices())):
             assert torch.equal(a, b)
         tr, _ = gx.mh(rng, tr, gx.Regenerate(sel))
+
+
+@pytest.fixture
+def one_rank_group(cuda, tmp_path, request):
+    """A one-rank process group (NCCL, or the backend the test names) for
+    the parallel layer, taken down after the test."""
+    import torch.distributed as dist
+
+    dist.init_process_group(getattr(request, "param", "nccl"), init_method=f"file://{tmp_path}/store", world_size=1,
+                            rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_reductions_on_a_one_rank_nccl_group_equal_the_dense_k1(cuda, one_rank_group):
+    """`sharded_lml`/`sharded_ess` over a one-rank NCCL group: the LML is
+    the K1 pair's `lse - log K` to the bit (the shifted sum is exactly 1),
+    the ESS within 1e-6 of the pair's (a float64 ratio of its two sums)."""
+    from genjax_tpu_torch.parallel import particle_mesh, sharded_ess, sharded_lml
+
+    mesh = particle_mesh(device_type="cuda")
+    x = 3.0 * torch.randn(1_000_000, generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    lse, ess = fused_logsumexp_ess(x)
+    before = fused_logsumexp_ess.launches
+    lml, est = sharded_lml(x, mesh), sharded_ess(x, mesh)
+    assert fused_logsumexp_ess.launches - before == 2  # one K1 launch per call
+    assert lml.device.type == "cuda" and float(lml) == float(lse - math.log(x.numel()))
+    assert abs(float(est) - float(ess)) <= 1e-6 * float(ess)
+
+
+def test_the_collectives_record_counts_the_bytes_of_cuda_tensors(cuda, one_rank_group):
+    """On NCCL nothing is staged; each call's bytes are the tensor's."""
+    from genjax_tpu_torch.parallel import collectives as C
+    from genjax_tpu_torch.parallel import particle_mesh
+
+    mesh = particle_mesh(device_type="cuda")
+    C.reset_stats()
+    C.all_reduce(torch.ones(3, device=cuda), mesh, "particles", "max")
+    gathered = C.all_gather(torch.ones(5, 2, device=cuda), mesh, "particles")
+    C.broadcast(torch.zeros(4, dtype=torch.int64, device=cuda), mesh, "particles")
+    assert gathered.shape == (5, 2) and gathered.is_cuda
+    stats = C.stats()["particles"]
+    assert stats["all_reduce"] == {"calls": 1, "bytes": 12}
+    assert stats["all_gather"] == {"calls": 1, "bytes": 40}
+    assert stats["broadcast"] == {"calls": 1, "bytes": 32}
+    assert stats["staged"] == {"calls": 0, "bytes": 0} and stats["exchange"]["calls"] == 0
+
+
+@pytest.mark.parametrize("one_rank_group", ["gloo"], indirect=True)
+def test_a_gloo_group_takes_cuda_tensors_in_its_collectives_unstaged(cuda, one_rank_group):
+    """gloo's all-reduce, all-gather and broadcast take CUDA tensors as they
+    are (only its point-to-point sends abort on one, and only the exchange
+    stages); the results stay on the card."""
+    from genjax_tpu_torch.parallel import collectives as C
+    from genjax_tpu_torch.parallel import particle_mesh
+
+    mesh = particle_mesh(device_type="cuda")
+    C.reset_stats()
+    out = C.all_reduce(torch.full((8,), 2.0, device=cuda), mesh, "particles")
+    gathered = C.all_gather(torch.arange(3.0, device=cuda), mesh, "particles")
+    sent = C.broadcast(torch.ones(2, device=cuda), mesh, "particles")
+    assert out.is_cuda and bool((out == 2.0).all())
+    assert gathered.is_cuda and torch.equal(gathered.cpu(), torch.arange(3.0))
+    assert sent.is_cuda and C.stats()["particles"]["staged"] == {"calls": 0, "bytes": 0}

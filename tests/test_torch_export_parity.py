@@ -37,6 +37,7 @@ NAMESPACES = [
     ".adev",
     ".models",
     ".ops",
+    ".parallel",
     ".utils",
     ".checkify",
     ".experimental",
