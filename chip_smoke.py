@@ -92,10 +92,15 @@ process, each driver against the stitched dense run from the same
 generators: `ShardedSMC` at K=1,000,000 (20 rounds, every round
 resampling; the sharded LML and ESS through K1) timed beside the dense
 round, `GridSMC` at 8 x 131,072, sharded logreg HMC at C=8192 beside the
-dense run, `sharded_pt_run` on T1's ladder, `sharded_svgd` at SV1's width;
-then `entry.dryrun_multichip` on 1 rank (NCCL) and on 2 ranks sharing
-the card (gloo; the neighbour exchange and the all-gather fallback at
-K=65,536), with each section's collectives. Every phase raises on
+dense run, `sharded_pt_run` on T1's ladder, `sharded_svgd` at SV1's width,
+the warmups over the chain axis (W1 `warmup_chains` on logreg at C=8192,
+W2 `chees_warmup` on eight schools at 64 chains) against the stitched
+dense warmups and the plain dense ones, and the data-sharded likelihoods
+(D1 logreg HMC at C=8192 against the dense run, D2 importance at
+K=1,000,000 with its LML through K1); then `entry.dryrun_multichip` on 1
+rank (NCCL) and on 2 ranks sharing the card (gloo; the neighbour exchange
+and the all-gather fallback at K=65,536, the warmup and data-sharded
+sections), with each section's collectives. Every phase raises on
 failure; nothing is caught.
 
 Run from the repository root, with one CUDA card visible:
@@ -277,8 +282,23 @@ INCREMENTAL_CFG = dict(chains=8_192, burn=100, sweeps=100, sync_sweeps=5, timed_
 # timed beside the dense `svgd`. Then `entry.dryrun_multichip` on 1 rank
 # (NCCL) and on 2 ranks sharing the card (gloo; K=65536: the neighbour
 # exchange, the all-gather fallback, the host staging).
+# W1 `warmup_chains` (HMC, L=5, 200 steps) on logreg at config 4's width
+# and W2 `chees_warmup` on eight schools at H1's width and cap (64 chains,
+# 300 steps, at most 1024 leapfrog steps per step), each over the chain
+# axis against the stitched dense warmup (rtol 1e-5) and the plain dense
+# warmup at JAX's test tolerances: W1 one run of each, timed sharded,
+# dense, dense, sharded; W2 the means over `chees_pairs` independent
+# pairs on `chees_pair_ranks` gloo ranks sharing the card (one 64-chain
+# ChEES warmup spreads wider than the tolerances); D1 data-sharded logreg HMC at config 4's
+# width against the dense `run_chains`; D2 data-sharded importance of
+# logreg from the prior at K=1M, N=256, its LML through K1.
 PARALLEL_CFG = dict(rounds=20, grid_chains=8, grid_particles=131_072, timed_pairs=3, piece_pairs=5, pt_sweeps=1_500,
-                    pt_burn=500, pt_check_sweeps=20, sv_steps=500, sv_bandwidth=1.0, dryrun_ranks=(1, 2))
+                    pt_burn=500, pt_check_sweeps=20, sv_steps=500, sv_bandwidth=1.0, dryrun_ranks=(1, 2),
+                    warmup_steps=200, warmup_L=5, chees_chains=64, chees_steps=300, chees_pairs=32,
+                    chees_pair_ranks=8, data_pairs=3, data_particles=1_000_000)
+# JAX's tolerances for a sharded warmup against the dense one
+# (`tests/parallel/test_sharded_warmup.py`).
+WARMUP_TOLERANCE = {"log eps": 0.3, "log inv_mass": 0.3, "accept": 0.08, "log T": 0.5}
 
 
 def check(ok: bool, what: str) -> None:
@@ -3636,6 +3656,7 @@ def phase_parallel(gx, ops, card: str) -> None:
                   f"{', '.join(f'{v:.3f}' for v in dense_ms)} (2 pairs, the first with the first run's set-up; SV1 "
                   f"2.05-4.14 ms)")
             stats = C.stats()
+            phase_parallel_warmup_data(gx, ops, card, cmesh, twin)
         finally:
             dist.destroy_process_group()
     print(f"[{card}] the collectives of the one-rank phases (NCCL): " + "; ".join(
@@ -3658,6 +3679,213 @@ def phase_parallel(gx, ops, card: str) -> None:
                 for section, st in r["stats"].items()))
     print(f"[{card}] dryrun_multichip at {', '.join(map(str, runs))} ranks, at once: {time.perf_counter() - t0:.1f} s")
     print(f"[{card}] phase_parallel wall: {time.perf_counter() - t_phase:.1f} s")
+
+
+def warmup_against_dense(label: str, got, ref) -> str:
+    """A sharded `warmup_chains` result against the plain dense one at
+    JAX's test tolerances (`WARMUP_TOLERANCE`): eps, every inverse-mass
+    entry and the accept rate."""
+    gaps = {"log eps": abs(math.log(float(got.eps)) - math.log(float(ref.eps))),
+            "log inv_mass": max(float((torch.log(a) - torch.log(b)).abs().max())
+                                for a, b in zip(torch.utils._pytree.tree_leaves(got.inv_mass),
+                                                torch.utils._pytree.tree_leaves(ref.inv_mass))),
+            "accept": abs(float(got.accept_rate) - float(ref.accept_rate))}
+    for k, v in gaps.items():
+        check(v < WARMUP_TOLERANCE[k], f"{label}: |d {k}| {v} against the dense warmup (limit {WARMUP_TOLERANCE[k]})")
+    return ", ".join(f"|d {k}| {v:.4f} (limit {WARMUP_TOLERANCE[k]})" for k, v in gaps.items())
+
+
+def timed_ms(fn) -> tuple:
+    """`(fn(), host-clock ms)` between two device synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def collective_line(stats: dict) -> str:
+    return "; ".join(f"{axis}: " + ", ".join(f"{k} {v['calls']} calls {v['bytes']} B" for k, v in kinds.items()
+                                             if v["calls"]) for axis, kinds in stats.items())
+
+
+def phase_parallel_warmup_data(gx, ops, card: str, cmesh, twin) -> None:
+    """W1, W2, D1 and D2 at one NCCL rank (the process group of
+    `phase_parallel`): the warmups over the chain axis `cmesh` against the
+    stitched dense warmup (each entry within 1e-5 relative; whether bit for
+    bit is printed) and against the plain dense warmup at JAX's
+    tolerances, then the data-sharded likelihoods against the dense model
+    from the same generator, with their collectives. The dense sides' K1
+    launches are not counted on the path."""
+    from genjax_tpu_torch import profiling
+    from genjax_tpu_torch.inference import chees
+    from genjax_tpu_torch.inference.adaptation import warmup_chains
+    from genjax_tpu_torch.inference.mcmc import run_chains, share_chain_args
+    from genjax_tpu_torch.inference.requests import HMC
+    from genjax_tpu_torch.models import logreg
+    from genjax_tpu_torch.parallel import certify, particle_mesh
+    from genjax_tpu_torch.parallel import collectives as C
+    from genjax_tpu_torch.parallel.data import data_sharded
+    from genjax_tpu_torch.parallel.launch import launch
+
+    cfg, dev = PARALLEL_CFG, "cuda"
+    t_sec = time.perf_counter()
+
+    def against_stitched(label: str, res, ref, warmed, ref_warmed) -> str:
+        got, want = certify.warmup_numbers(res), certify.warmup_numbers(ref)
+        gap = certify.warmup_gap(got, want)
+        check(gap <= 1e-5, f"{label}: {gap:.2e} (relative) off the stitched dense warmup (limit 1e-5)")
+        same = certify.warmup_equal(got, want) and all(
+            torch.equal(a, b) for a, b in zip(torch.utils._pytree.tree_leaves(warmed.get_choices()),
+                                              torch.utils._pytree.tree_leaves(ref_warmed.get_choices())))
+        return "bit for bit" if same else f"within {gap:.2e} relative"
+
+    # W1: warmup_chains on logreg at config 4's width, the chains over the mesh.
+    h = logreg.BenchConfig()
+    X, ys = h.data(dev)
+    traces = logreg.init_chains(torch.Generator(device=dev).manual_seed(47), X, ys, h.n_chains)
+    sel = gx.Selection.at["w"]
+    kw = dict(n_steps=cfg["warmup_steps"], L=cfg["warmup_L"])
+    rng, rng_ref = twin(48)
+    C.reset_stats()
+    (warmed, res), w1_sharded = timed_ms(lambda: warmup_chains(rng, traces, sel, mesh=cmesh, **kw))
+    w1_stats = C.stats()
+    ref_blocks, ref = certify.stitched_warmup(rng_ref, [traces], sel, cfg["warmup_steps"], L=cfg["warmup_L"])
+    w1_stitched = against_stitched("W1", res, ref, warmed, ref_blocks[0])
+    (_, dense), w1_dense = timed_ms(lambda: warmup_chains(torch.Generator(device=dev).manual_seed(48), traces, sel, **kw))
+    w1_jax = warmup_against_dense("W1", res, dense)
+    w1_dense = [w1_dense, timed_ms(lambda: warmup_chains(rng, traces, sel, **kw))[1]]
+    w1_sharded = [w1_sharded, timed_ms(lambda: warmup_chains(rng, traces, sel, mesh=cmesh, **kw))[1]]
+    steps = cfg["warmup_steps"]
+    print(f"[{card}] W1 warmup_chains over the chain axis (1 rank, nccl), logreg HMC C={h.n_chains} N={h.n_data} "
+          f"D={h.dim} L={cfg['warmup_L']}, {steps} steps: eps {float(res.eps):.5f}, accept {float(res.accept_rate):.4f}; "
+          f"equal to the stitched dense warmup {w1_stitched} (limit 1e-5 relative on eps and every inverse-mass "
+          f"entry); against the plain dense warmup: {w1_jax}; ms per warmup step sharded "
+          f"{', '.join(f'{v / steps:.4f}' for v in w1_sharded)}, dense {', '.join(f'{v / steps:.4f}' for v in w1_dense)} "
+          f"(runs in the order sharded, dense, dense, sharded); collectives {collective_line(w1_stats)}")
+    del warmed, ref_blocks, traces
+
+    # W2: chees_warmup on eight schools at H1's width and cap.
+    n_c, steps = cfg["chees_chains"], cfg["chees_steps"]
+    start, ssel = certify.eight_schools_start(49, n_c, dev)
+    rng, rng_ref = twin(50)
+    leap0 = chees.chees_stats["leapfrog_total"]
+    (warmed, res), w2_sharded = timed_ms(lambda: chees.chees_warmup(rng, start, ssel, n_steps=steps, mesh=cmesh))
+    w2_leapfrogs = (chees.chees_stats["leapfrog_total"] - leap0) / steps
+    ref_blocks, ref = certify.stitched_chees(rng_ref, [start], ssel, steps)
+    w2_stitched = against_stitched("W2", res, ref, warmed, ref_blocks[0])
+    syncs = count_syncs(lambda: chees.chees_warmup(rng, start, ssel, n_steps=SCHOOLS_SYNC_STEPS, mesh=cmesh))
+    check(syncs == SCHOOLS_SYNC_STEPS, f"W2: {syncs} syncs over {SCHOOLS_SYNC_STEPS} sharded ChEES steps (1 per step)")
+    del warmed, ref_blocks, start
+    # Against the plain dense warmup: a sharded run draws its chains from
+    # its fork, so it and the dense run are independent draws, and one
+    # 64-chain ChEES warmup spreads wider than JAX's same-key tolerances
+    # (log T most). The means over independent
+    # pairs, each a sharded and a dense warmup from one start, are held to
+    # them; the pairs run on gloo ranks sharing the card, each rank with a
+    # chain axis of its own.
+    n_pairs, n_ranks = cfg["chees_pairs"], cfg["chees_pair_ranks"]
+    t_pairs = time.perf_counter()
+    seeds = list(range(3000, 3000 + n_pairs))
+    pairs = [p for r in launch(certify.chees_pairs_rank_body, n_ranks, backend="gloo", device=dev, timeout=600,
+                               args=(seeds, n_c, steps, 1024, dev)) for p in r]
+    t_pairs = time.perf_counter() - t_pairs
+    gaps = {}
+    for key, limit in WARMUP_TOLERANCE.items():
+        if key == "log inv_mass":
+            diffs = [[a - b for a, b in zip(p["sharded"][key], p["dense"][key])] for p in pairs]
+            per_entry = [[d[i] for d in diffs] for i in range(len(diffs[0]))]
+            mean, se = max(((abs(statistics.fmean(e)), statistics.stdev(e) / math.sqrt(n_pairs)) for e in per_entry))
+        else:
+            diff = [p["sharded"][key] - p["dense"][key] for p in pairs]
+            mean, se = abs(statistics.fmean(diff)), statistics.stdev(diff) / math.sqrt(n_pairs)
+        check(mean < limit, f"W2: the mean |d {key}| over {n_pairs} pairs is {mean} against the dense warmups (limit "
+                            f"{limit}; SE {se})")
+        gaps[key] = (mean, se, limit)
+
+    def pair_mean(kind: str, key: str) -> float:
+        return statistics.fmean(p[kind][key] for p in pairs)
+
+    pair_ms = {kind: 1e3 * pair_mean(kind, "seconds") / steps for kind in ("sharded", "dense")}
+    print(f"[{card}] W2 chees_warmup over the chain axis (1 rank, nccl), eight schools, {n_c} chains, {steps} steps, "
+          f"max_leapfrog 1024 (H1's): eps {float(res.eps):.5f}, T {float(res.trajectory_length):.4f}, accept "
+          f"{float(res.accept_rate):.4f}; equal to the stitched dense warmup {w2_stitched}; {w2_sharded / steps:.3f} ms "
+          f"per ChEES step at {w2_leapfrogs:.2f} leapfrog steps per step; {syncs / SCHOOLS_SYNC_STEPS:.0f} sync per "
+          f"step (over {SCHOOLS_SYNC_STEPS})")
+    print(f"[{card}] W2 against the plain dense warmup: {n_pairs} independent pairs (a sharded warmup over a one-rank "
+          f"chain axis and a dense one from the same start, seeds {seeds[0]}-{seeds[-1]}) on {n_ranks} gloo ranks "
+          f"sharing the card, {t_pairs:.1f} s; mean difference sharded - dense, |mean| (SE; JAX's limit): " + ", ".join(
+              f"{k} {m:.4f} ({se:.4f}; {lim})" for k, (m, se, lim) in gaps.items())
+          + " (log inv_mass: the widest entry); mean over the pairs, sharded and dense: log T "
+          f"{pair_mean('sharded', 'log T'):.4f}, {pair_mean('dense', 'log T'):.4f}; leapfrog steps per ChEES step "
+          f"{pair_mean('sharded', 'leapfrogs'):.3f}, {pair_mean('dense', 'leapfrogs'):.3f} (largest "
+          f"{max(p['sharded']['leapfrogs'] for p in pairs):.2f}, {max(p['dense']['leapfrogs'] for p in pairs):.2f}); "
+          f"ms per ChEES step {pair_ms['sharded']:.3f}, {pair_ms['dense']:.3f} ({n_ranks} processes on the card, each "
+          "pair's sharded run first)")
+
+    # D1: logreg HMC with the data over a "data" axis, against the dense run.
+    dmesh = particle_mesh(axis_name="data", device_type=dev)
+    model = data_sharded(logreg.logistic_regression, dmesh, ["ys"], data_args=(0,))
+    init = 51
+    start = share_chain_args(model.importance(torch.Generator(device=dev).manual_seed(init), gx.ChoiceMap.kw(ys=ys),
+                                              (X,), n=h.n_chains)[0], (X,))
+    dense_start = logreg.init_chains(torch.Generator(device=dev).manual_seed(init), X, ys, h.n_chains)
+    req = HMC(sel, h.eps, L=h.L)
+    rng, rng_ref = twin(52)
+    C.reset_stats()
+    finals, accs = run_chains(rng, start, req, h.n_steps)
+    d1_stats = C.stats()
+    d_finals, d_accs = run_chains(rng_ref, dense_start, req, h.n_steps)
+    score, d_score = finals.get_score(), d_finals.get_score()
+    gap = float(((score - d_score).abs() / d_score.abs()).max())
+    w, wd = finals.get_choices()["w"], d_finals.get_choices()["w"]
+    w_gap = float(((w - wd).abs() / wd.abs().clamp(min=1.0)).max())
+    check(gap <= 1e-5 and w_gap <= 1e-5 and torch.equal(accs, d_accs),
+          f"D1: scores {gap:.2e} and w {w_gap:.2e} (relative) off the dense run (limit 1e-5)")
+    per_step = h.L + 1
+    limit = h.n_chains * h.dim * 4
+    ar = d1_stats["data"]["all_reduce"]
+    others = {k: v for k, v in d1_stats["data"].items() if k != "all_reduce" and v["calls"]}
+    check(set(d1_stats) == {"data"} and not others and ar["calls"] == h.n_steps * (2 * per_step + 1)
+          and ar["bytes"] == h.n_steps * ((per_step + 1) * h.n_chains * 4 + per_step * limit),
+          f"D1: the collectives are not one score (C floats) per density pass and one gradient (C x D) per backward: "
+          f"{d1_stats}")
+    ms = alternating({"sharded": lambda: run_chains(rng, start, req, h.n_steps),
+                      "dense": lambda: run_chains(rng, dense_start, req, h.n_steps)}, cfg["data_pairs"])
+    print(f"[{card}] D1 data-sharded logreg HMC (1 rank, nccl), C={h.n_chains} N={h.n_data} D={h.dim} eps {h.eps} "
+          f"L={h.L} S={h.n_steps}: scores {gap:.2e}, w {w_gap:.2e} (relative) from the dense run from the same "
+          f"generator (limit 1e-5), accept flags equal; collectives per HMC step {ar['calls'] / h.n_steps:.0f} "
+          f"all-reduces, {ar['bytes'] / h.n_steps:.0f} B, the largest {limit} B = C D 4 (a gradient), no all-gather; "
+          f"ms per run sharded {statistics.median(ms['sharded']):.3f}, dense {statistics.median(ms['dense']):.3f} "
+          f"(medians of {cfg['data_pairs']} alternating pairs)")
+    print_profile(card, "D1 data-sharded HMC run (per HMC step)",
+                  profiling.trace(lambda: run_chains(rng, start, req, h.n_steps), h.n_steps))
+    print_profile(card, "D1's dense HMC run, same process (per HMC step)",
+                  profiling.trace(lambda: run_chains(rng, dense_start, req, h.n_steps), h.n_steps))
+    del start, dense_start, finals, d_finals
+
+    # D2: data-sharded importance from the prior at K=1M, the LML through K1.
+    k = cfg["data_particles"]
+    rng, rng_ref = twin(53)
+    C.reset_stats()
+    (lml, lw), d2_ms = timed_ms(lambda: (lambda lw: (ops.logsumexp(lw) - math.log(k), lw))(
+        model.importance(rng, gx.ChoiceMap.kw(ys=ys), (X,), n=k)[1]))
+    d2_stats = C.stats()
+    (ref_lml, ref_lw), d2_dense_ms = timed_ms(lambda: uncounted(ops, lambda: (lambda lw: (
+        ops.logsumexp(lw) - math.log(k), lw))(logreg.logistic_regression.importance(
+            rng_ref, gx.ChoiceMap.kw(ys=ys), (X,), n=k)[1])))
+    lml_gap = abs(float(lml) - float(ref_lml)) / max(1.0, abs(float(ref_lml)))
+    check(lml_gap <= 1e-5, f"D2: the data-sharded LML {float(lml)} against the dense {float(ref_lml)} (limit 1e-5)")
+    k1_d2, _ = k1_against_plain(ops, lw)
+    check(k1_d2 <= 1e-6, f"D2: K1 {k1_d2:.2e} of max(1, |plain|) off its plain twin on the weights (limit 1e-6)")
+    ar = d2_stats["data"]["all_reduce"]
+    print(f"[{card}] D2 data-sharded importance of logreg from the prior (1 rank, nccl), K={k} N={h.n_data} D={h.dim}: "
+          f"LML {float(lml):.6f}, {lml_gap:.2e} (relative) from the dense importance from the same generator (limit "
+          f"1e-5); K1 on the all-reduced weights {k1_d2:.3e} of max(1, |plain|) from its plain twin (limit 1e-6); "
+          f"{ar['calls']} all-reduce of {ar['bytes']} B (the weights); ms sharded {d2_ms:.3f}, dense {d2_dense_ms:.3f} "
+          f"(one run each, the first)")
+    del lw, ref_lw
+    print(f"[{card}] W1-D2 wall: {time.perf_counter() - t_sec:.1f} s")
 
 
 def cost_line(card: str, label: str, steps: int, on: list, off: list, per_run: int) -> None:
@@ -3760,6 +3988,7 @@ def main() -> None:
         check(count > 0, f"the auxiliary layer's path (the resumed SMC state, SIR, time travel) launched no {name} kernel")
     check(paths["incremental"]["logsumexp"] > 0, "the incremental edits' path (I2's LML) launched no logsumexp kernel")
     check(paths["parallel"]["logsumexp_ess"] > 0, "the parallel path (the sharded LML and ESS) launched no logsumexp_ess kernel")
+    check(paths["parallel"]["logsumexp"] > 0, "the parallel path (D2's data-sharded LML) launched no logsumexp kernel")
     print("kernel launches on the main paths: " + ", ".join(
         f"{name} {count} (" + ", ".join(f"{path} path {p[name]}" for path, p in paths.items()) + ")"
         for name, count in launches.items()))

@@ -42,8 +42,12 @@ def dryrun_multichip(n_ranks: int, device: str = "cuda", timeout: float = 600.0)
     chains, the 2-D GridSMC and island SMC over a hybrid mesh (on an even
     number of ranks), SVGD, tempered SMC and parallel tempering, each
     certified against the stitched dense run from the same generators (bit
-    for bit where the arithmetic is the same) or the conjugate oracle.
-    JAX's GSPMD warmup section has no counterpart yet (ROADMAP).
+    for bit where the arithmetic is the same) or the conjugate oracle; then
+    JAX's GSPMD sections: `warmup_chains` and `chees_warmup` over the chain
+    axis against the stitched dense warmup (eps, T and the inverse mass
+    within 1e-5 relative, JAX's rule; the printed line says whether they are
+    equal bit for bit), and HMC on logistic regression with its data split
+    over the ranks against the dense model (`parallel/data.py`).
 
     The ranks talk over NCCL when each has its own card, over gloo when
     they share a card (NCCL puts one rank on a card) or run on the CPU.
@@ -60,6 +64,7 @@ def dryrun_multichip(n_ranks: int, device: str = "cuda", timeout: float = 600.0)
     results = launch(dryrun_rank_body, n_ranks, backend=backend, device=device, timeout=timeout, args=(device,))
     head = results[0]
     extra = "".join(f"; {name} certified" for name in head["stats"])
+    bitwise = ", ".join(f"{name} {'bit for bit' if same else 'within 1e-5'}" for name, same in head["bitwise"].items())
     print(f"dryrun_multichip({n_ranks}, {device}, {backend}): sharded SMC lml={head['lml']:.4f} ess={head['ess']:.1f}"
-          f" posterior mean {head['posterior_mean']:.4f}{extra}")
+          f" posterior mean {head['posterior_mean']:.4f}{extra}; the warmups against the stitched dense ones: {bitwise}")
     return results

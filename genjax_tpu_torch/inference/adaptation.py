@@ -16,13 +16,26 @@ Counterpart of `genjax_tpu/inference/adaptation.py`: `DualAveragingState`,
 The schedule has three phases of fixed length (Python ints): an eps-only
 burn-in on unit mass, a phase under the first mass estimate, and an eps
 polish under the final one.
+
+Over a sharded chain axis (`mesh=`, the counterpart of JAX's warmup jitted
+with the chain axis sharded under GSPMD), each rank moves its own C/n
+chains on its fork of the replicated generator (`fork(rng, n)[rank]`, as
+`parallel/chains.py` does), and every cross-chain statistic is a global
+one: the mean acceptance is an all-reduced float64 sum and count, the
+variance two all-reduced float64 passes (the sum, then the squared
+deviations from the global mean). Dual averaging then runs identically on
+every rank. `ChainShards` forms those sums: all-reduced on a rank, added
+in rank order in the stitched dense reference (`parallel/certify.py`),
+which moves every rank's block in one process.
 """
 
+import dataclasses
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
+from genjax_tpu_torch.adev.core import fork
 from genjax_tpu_torch.core.choice_map import Choice, Selection
 from genjax_tpu_torch.core.diff import Diff
 from genjax_tpu_torch.core.gfi import Trace
@@ -105,7 +118,9 @@ def da_final(state: DualAveragingState) -> FloatArray:
 # -- cross-chain mass estimation ---------------------------------------------
 
 
-def cross_chain_inv_mass(traces: Trace[Any], selection: Selection, n_chains: int | None = None):
+def cross_chain_inv_mass(
+    traces: Trace[Any], selection: Selection, n_chains: int | None = None, mesh=None, axis: str = "chains"
+):
     """A diagonal inverse mass matrix (the posterior variance of the
     selected values) from the spread across a batch of chains.
 
@@ -113,12 +128,17 @@ def cross_chain_inv_mass(traces: Trace[Any], selection: Selection, n_chains: int
     without the chain axis (and recorded so), with Stan-style shrinkage
     `(n/(n+5)) * var + 1e-3 * (5/(n+5))`. A leaf without the chain axis
     (shared by every chain) has no spread to measure and gets unit mass.
+
+    With `mesh`, `traces` are this rank's chains of a batch whose chain
+    axis spans `axis`: the variance is the global one (`ChainShards`), the
+    same on every rank, and `n_chains`, where given, is the global count.
     """
+    if mesh is not None:
+        return chain_statistics(traces, n_chains, mesh, axis).inv_mass([traces], selection)
     if n_chains is None:
         n_chains = traces.particle_count()
     values = traces.get_choices().filter(selection)
-    n = float(n_chains)
-    shrink = n / (n + 5.0)
+    shrink = _shrink(float(n_chains))
 
     def leaf_var(c: Choice) -> Choice:
         v = as_float(c.v)
@@ -127,6 +147,133 @@ def cross_chain_inv_mass(traces: Trace[Any], selection: Selection, n_chains: int
         return Choice(torch.ones(v.shape, device=v.device), 0)
 
     return values.map_choices(leaf_var)
+
+
+def _shrink(n: float) -> float:
+    return n / (n + 5.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseChains:
+    """The statistics of a chain batch that one process holds whole: the
+    float32 mean acceptance and `cross_chain_inv_mass` of the plain
+    warmups. `n_chains` as `cross_chain_inv_mass` takes it."""
+
+    n_chains: int | None = None
+
+    def mean_accept(self, stats: list[torch.Tensor]) -> torch.Tensor:
+        return stats[0].mean()
+
+    def inv_mass(self, blocks: list[Trace[Any]], selection: Selection):
+        return cross_chain_inv_mass(blocks[0], selection, self.n_chains)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainShards:
+    """The statistics of a chain batch over a sharded chain axis:
+    `n_chains` chains in all, of which a process moves some blocks.
+
+    On a rank (`mesh` given) the process moves its own block, and a sum is
+    its float64 partial all-reduced over `axis`. The stitched dense
+    reference (`mesh` None, `parallel/certify.py`) moves every rank's block
+    in rank order, and a sum is the blocks' float64 partials added in that
+    order. Each block's partial is the same computation in both, so the two
+    differ only in the order in which the partials are added."""
+
+    n_chains: int
+    mesh: Any = None
+    axis: str = "chains"
+
+    def total(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        """The global sum of the blocks' partial sums `parts` (float64)."""
+        total = parts[0].clone()
+        for p in parts[1:]:
+            total = total + p
+        if self.mesh is not None:
+            from genjax_tpu_torch.parallel import collectives
+
+            collectives.all_reduce(total, self.mesh, self.axis)
+        return total
+
+    def mean_accept(self, stats: list[torch.Tensor]) -> torch.Tensor:
+        """The mean over every chain of the blocks' per-chain accept
+        statistics: one global float64 pair (sum, count), as float32."""
+        parts = [torch.stack([s.double().sum(), s.new_full((), s.numel(), dtype=torch.float64)]) for s in stats]
+        total = self.total(parts)
+        return (total[0] / total[1]).float()
+
+    def inv_mass(self, blocks: list[Trace[Any]], selection: Selection):
+        """`cross_chain_inv_mass` over every chain of the blocks, in two
+        passes of float64 partial sums: the mean, then the squared
+        deviations from it. A leaf carries the chain axis where it is
+        batched with the block's own (local) row count; the global count
+        enters the mean, the variance and the shrinkage only."""
+        values = [b.get_choices().filter(selection) for b in blocks]
+        leaves = [_chain_leaves(v, b.particle_count()) for b, v in zip(blocks, values)]
+        chain = [i for i, v in enumerate(leaves[0]) if v is not None]
+        n = float(self.n_chains)
+        out = {}
+        if chain:
+            sums = self.total([torch.cat([row[i].double().sum(0).reshape(-1) for i in chain]) for row in leaves])
+            means = _split_like(sums / n, [leaves[0][i][0] for i in chain])
+            sq = self.total([
+                torch.cat([torch.square(row[i].double() - m).sum(0).reshape(-1) for i, m in zip(chain, means)])
+                for row in leaves
+            ])
+            shrink = _shrink(n)
+            out = {i: (shrink * var + 1e-3 * (1.0 - shrink)).float() for i, var in zip(chain, _split_like(sq / n, means))}
+        order = iter(range(len(leaves[0])))
+
+        def leaf(c: Choice) -> Choice:
+            i = next(order)
+            if i in out:
+                return Choice(out[i], 0)
+            v = as_float(c.v)
+            return Choice(torch.ones(v.shape, device=v.device), 0)
+
+        return values[0].map_choices(leaf)
+
+
+def _chain_leaves(values, n_local: int) -> list:
+    """Each choice leaf of `values` as a float tensor where it carries the
+    chain axis (batched, with `n_local` rows), else None."""
+    row = []
+    values.map_choices(lambda c: row.append(c) or c)
+    out = []
+    for c in row:
+        v = as_float(c.v)
+        out.append(v if c.batched and v.dim() >= 1 and v.shape[0] == n_local else None)
+    return out
+
+
+def _split_like(flat: torch.Tensor, likes: list[torch.Tensor]) -> list[torch.Tensor]:
+    """`flat` cut into tensors of the shapes of `likes`, in order."""
+    out, at = [], 0
+    for x in likes:
+        out.append(flat[at : at + x.numel()].reshape(x.shape))
+        at += x.numel()
+    return out
+
+
+def chain_statistics(traces: Trace[Any], n_chains: int | None, mesh, axis: str):
+    """Where a warmup's statistics come from: the batch itself
+    (`DenseChains`, no mesh) or the global sums over `mesh`'s `axis`, of
+    which `traces` hold this rank's chains (`n_chains`, where given, the
+    global count)."""
+    if mesh is None:
+        return DenseChains(n_chains)
+    shards = ChainShards(traces.particle_count() * mesh.shape[axis], mesh, axis)
+    if n_chains is not None and n_chains != shards.n_chains:
+        raise ValueError(f"n_chains={n_chains}, but the mesh holds {shards.n_chains} chains")
+    return shards
+
+
+def chain_streams(rng: torch.Generator, mesh, axis: str) -> list[torch.Generator]:
+    """The generator of each block a process moves: `rng` itself without a
+    mesh, this rank's fork `fork(rng, n)[rank]` with one."""
+    if mesh is None:
+        return [rng]
+    return [fork(rng, mesh.shape[axis])[mesh.rank(axis)]]
 
 
 # -- warmup driver ------------------------------------------------------------
@@ -155,27 +302,69 @@ def accept_probability(alpha: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(alpha), 0.0, torch.exp(torch.clamp(alpha, max=0.0)))
 
 
-def _adaptive_phase(rng, traces, selection, algorithm, L, inv_mass, da, n_steps, target, jitter):
-    """`n_steps` MH steps over the batch with a shared step size, adapted
-    after each step."""
-    argdiffs = Diff.no_change(traces.get_args())
-    probs = []
-    for _ in range(n_steps):
-        request = _make_request(algorithm, selection, torch.exp(da.log_eps), L, inv_mass, jitter)
-        proposed, alpha, _, _ = request.edit(rng, traces, argdiffs)
-        u = torch.rand(alpha.shape, generator=rng, device=rng.device)
-        traces = where_tree(torch.log(u) < alpha, proposed, traces)
-        mean_prob = accept_probability(alpha).mean()
-        da = da_update(da, mean_prob, target=target)
-        probs.append(mean_prob)
-    return traces, da, torch.stack(probs)
-
-
 def phase_lengths(n_steps: int) -> tuple[int, int, int]:
     """The three phases' step counts: 30% burn-in, the rest, 20% polish."""
     n1 = max(1, int(0.3 * n_steps))
     n3 = max(1, int(0.2 * n_steps))
     return n1, max(1, n_steps - n1 - n3), n3
+
+
+def adapt_blocks(
+    streams: list[torch.Generator],
+    blocks: list[Trace[Any]],
+    stats: "DenseChains | ChainShards",
+    selection: Selection,
+    n_steps: int,
+    step: Callable,
+    eps0: float,
+    target: float,
+    adapt_mass: bool,
+) -> tuple[list[Trace[Any]], WarmupResult]:
+    """The three-phase schedule: an eps-only burn-in on unit mass, a phase
+    under the first mass estimate (averaging restarted from eps = 1: under
+    a variance-matched metric the target is roughly unit-scale), and an
+    eps polish under the final one. `blocks[i]` moves on `streams[i]` by
+    `step(rng, traces, eps, inv_mass) -> (traces, per-chain accept
+    statistic)`, and the step size and the mass adapt on the statistics of
+    `stats` (of the one batch, or global over a sharded chain axis)."""
+    device = blocks[0].get_score().device
+
+    def phase(blocks, da, inv_mass, n):
+        hist = []
+        for _ in range(n):
+            eps = torch.exp(da.log_eps)
+            moved = [step(g, tr, eps, inv_mass) for g, tr in zip(streams, blocks)]
+            blocks = [tr for tr, _ in moved]
+            mean_prob = stats.mean_accept([a for _, a in moved])
+            da = da_update(da, mean_prob, target=target)
+            hist.append(mean_prob)
+        return blocks, da, torch.stack(hist)
+
+    n1, n2, n3 = phase_lengths(n_steps)
+    inv_mass = None
+    blocks, da, _ = phase(blocks, da_init(eps0, device), inv_mass, n1)
+    if adapt_mass:
+        inv_mass = stats.inv_mass(blocks, selection)
+        da = da_init(1.0, device)
+    blocks, da, _ = phase(blocks, da, inv_mass, n2)
+    if adapt_mass:
+        inv_mass = stats.inv_mass(blocks, selection)
+    blocks, da, hist = phase(blocks, da, inv_mass, n3)
+    return blocks, WarmupResult(eps=da_final(da), inv_mass=inv_mass, accept_rate=hist.mean())
+
+
+def mh_step(algorithm: str, selection: Selection, L: int, jitter: float) -> Callable:
+    """One MH step of `warmup_chains`'s kernel on a batch, for
+    `adapt_blocks`: the proposal's and the accept uniforms' draws from the
+    block's own generator."""
+
+    def step(rng, traces, eps, inv_mass):
+        request = _make_request(algorithm, selection, eps, L, inv_mass, jitter)
+        proposed, alpha, _, _ = request.edit(rng, traces, Diff.no_change(traces.get_args()))
+        u = torch.rand(alpha.shape, generator=rng, device=rng.device)
+        return where_tree(torch.log(u) < alpha, proposed, traces), accept_probability(alpha)
+
+    return step
 
 
 def warmup_chains(
@@ -191,6 +380,8 @@ def warmup_chains(
     adapt_mass: bool = True,
     jitter: float = 0.2,
     n_chains: int | None = None,
+    mesh=None,
+    axis: str = "chains",
 ) -> tuple[Trace[Any], WarmupResult]:
     """Warm up a batch of chains (a trace made with a chain count): adapt
     a shared step size by dual averaging on the cross-chain mean
@@ -212,27 +403,17 @@ def warmup_chains(
     >>> warmed, result = warmup_chains(rng, trs, gx.Selection.at["mu"], n_steps=60, L=5)
     >>> bool(result.eps > 0), result.inv_mass["mu"].shape
     (True, torch.Size([]))
+
+    With `mesh`, `traces` are this rank's chains of a batch whose chain
+    axis spans the mesh's `axis` (`n_chains`, where given, the global
+    count): every rank draws from `fork(rng, n)[rank]`, adapts on the global
+    statistics and returns its own warmed chains with the same result.
     """
     if target_accept is None:
         target_accept = 0.8 if algorithm == "hmc" else 0.574
-    if n_chains is None:
-        n_chains = traces.particle_count()
-    n1, n2, n3 = phase_lengths(n_steps)
-    device = traces.get_score().device
-
-    inv_mass = None
-    traces, da, _ = _adaptive_phase(
-        rng, traces, selection, algorithm, L, inv_mass, da_init(eps0, device), n1, target_accept, jitter
+    stats = chain_statistics(traces, n_chains, mesh, axis)
+    (traces,), result = adapt_blocks(
+        chain_streams(rng, mesh, axis), [traces], stats, selection, n_steps, mh_step(algorithm, selection, L, jitter),
+        eps0, target_accept, adapt_mass,
     )
-    if adapt_mass:
-        inv_mass = cross_chain_inv_mass(traces, selection, n_chains)
-        # The metric changed; under a variance-matched metric the target is
-        # roughly unit-scale, so averaging restarts from eps = 1.
-        da = da_init(1.0, device)
-    traces, da, _ = _adaptive_phase(rng, traces, selection, algorithm, L, inv_mass, da, n2, target_accept, jitter)
-    if adapt_mass:
-        inv_mass = cross_chain_inv_mass(traces, selection, n_chains)
-    traces, da, accept_hist = _adaptive_phase(
-        rng, traces, selection, algorithm, L, inv_mass, da, n3, target_accept, jitter
-    )
-    return traces, WarmupResult(eps=da_final(da), inv_mass=inv_mass, accept_rate=accept_hist.mean())
+    return traces, result

@@ -20,6 +20,16 @@ iteration reads it once. That is one device synchronisation per ChEES
 step, where JAX runs a `fori_loop` with a traced bound and reads nothing.
 Everything else (the gradient estimate, Adam, dual averaging, the clip of
 log T) stays on the device.
+
+Over a sharded chain axis (`mesh=`), each rank moves its own chains on its
+fork of the replicated generator, and the statistics of the batch are
+global (`adaptation.ChainShards`): the chain mean of the end points, the
+weights' normaliser and the weighted sum of the gradient estimate, and the
+mean acceptance, as all-reduced float64 sums. The shared jitter u, which
+sets the leapfrog count that every rank reads on the host, comes from the
+replicated generator itself, so every rank runs the same trajectory
+length; the momenta, the accept uniforms and the chains' draws come from
+the rank's fork.
 """
 
 import math
@@ -36,8 +46,12 @@ from genjax_tpu_torch.core.pytree import Pytree
 from genjax_tpu_torch.core.staging import where_tree
 from genjax_tpu_torch.core.typing import FloatArray
 from genjax_tpu_torch.inference.adaptation import (
+    ChainShards,
+    DenseChains,
+    _split_like,
     accept_probability,
-    cross_chain_inv_mass,
+    chain_statistics,
+    chain_streams,
     da_final,
     da_init,
     da_update,
@@ -132,10 +146,7 @@ def _chees_grad_logT(probs, q0, q1, p1, inv_mass, traj_t) -> torch.Tensor:
     """The acceptance-weighted estimate of d ChEES / d log T from the
     batch. A diverged trajectory ends at inf or NaN with acceptance 0, and
     0 * inf is NaN, so non-finite per-chain terms are zeroed explicitly."""
-    q1_leaves = pytree.tree_leaves(q1)
-    zeros = [torch.zeros_like(v[0]) for v in q1_leaves]
-    finite = torch.isfinite(_batch_sq_dist(q1_leaves, zeros))
-    safe_q1 = [torch.where(finite.reshape((-1,) + (1,) * (v.dim() - 1)), v, 0.0) for v in q1_leaves]
+    finite, safe_q1 = _finite_rows(pytree.tree_leaves(q1))
     mu = [v.mean(0) for v in safe_q1]
     delta = _batch_sq_dist(safe_q1, mu) - _batch_sq_dist(q0, mu)
     im = _mass_leaves(inv_mass, mu)
@@ -145,6 +156,45 @@ def _chees_grad_logT(probs, q0, q1, p1, inv_mass, traj_t) -> torch.Tensor:
     per_chain = torch.where(torch.isfinite(per_chain), per_chain, 0.0)
     grad = (w * per_chain).sum() * traj_t
     return torch.where(torch.isfinite(grad), grad, 0.0)
+
+
+def _finite_rows(q1_leaves: list) -> tuple[torch.Tensor, list]:
+    """Which chains' end points are finite, and the end points with the
+    others zeroed (a diverged trajectory ends at inf or NaN)."""
+    zeros = [torch.zeros_like(v[0]) for v in q1_leaves]
+    finite = torch.isfinite(_batch_sq_dist(q1_leaves, zeros))
+    return finite, [torch.where(finite.reshape((-1,) + (1,) * (v.dim() - 1)), v, 0.0) for v in q1_leaves]
+
+
+def chees_statistics(stats: DenseChains | ChainShards, collected: list, inv_mass, traj_t):
+    """`(d ChEES / d log T, mean accept probability)` of a ChEES step:
+    `collected` holds each block's `(probs, q0, q1, p1)`. On one batch,
+    `_chees_grad_logT` and the float32 mean. Over a sharded batch, two
+    global float64 sums: the end points' sum (for their mean), then one
+    4-vector per block (the weights' sum, the weighted sum of the per-chain
+    terms, the accept probabilities' sum and count)."""
+    if isinstance(stats, DenseChains):
+        probs, q0, q1, p1 = collected[0]
+        return _chees_grad_logT(probs, q0, q1, p1, inv_mass, traj_t), probs.mean()
+    shards = stats
+    rows = []
+    for probs, q0, q1, p1 in collected:
+        finite, safe_q1 = _finite_rows(pytree.tree_leaves(q1))
+        rows.append((probs, q0, safe_q1, p1, finite))
+    sums = shards.total([torch.cat([v.double().sum(0).reshape(-1) for v in r[2]]) for r in rows])
+    mu = [m.float() for m in _split_like(sums / shards.n_chains, [v[0] for v in rows[0][2]])]
+    im = _mass_leaves(inv_mass, mu)
+    parts = []
+    for probs, q0, safe_q1, p1, finite in rows:
+        delta = _batch_sq_dist(safe_q1, mu) - _batch_sq_dist(q0, mu)
+        per_chain = delta * _batch_dot(safe_q1, mu, p1, im)
+        w = torch.where(finite, probs, 0.0).double()
+        per_chain = torch.where(torch.isfinite(per_chain), per_chain, 0.0).double()
+        parts.append(torch.stack([w.sum(), (w * per_chain).sum(), probs.double().sum(),
+                                  probs.new_full((), probs.numel(), dtype=torch.float64)]))
+    total = shards.total(parts)
+    grad = (total[1] / (total[0] + 1e-12)).float() * traj_t
+    return torch.where(torch.isfinite(grad), grad, 0.0), (total[2] / total[3]).float()
 
 
 class _Adam:
@@ -187,22 +237,70 @@ def _leapfrog_count(u, T, eps, max_leapfrog: int) -> int:
     return chees_stats["leapfrog"]
 
 
-def _chees_phase(rng, traces, selection, inv_mass, da, logT, opt, n_steps, target, max_leapfrog):
-    device = traces.get_score().device
+def _chees_phase(rng, streams, blocks, stats, selection, inv_mass, da, logT, opt, n_steps, target, max_leapfrog):
+    """`n_steps` ChEES steps: u from `rng` (one draw every block shares),
+    each block's HMC step from its own generator, the statistics of
+    `stats`."""
+    device = blocks[0].get_score().device
     hist = []
     for _ in range(n_steps):
         eps = torch.exp(da.log_eps)
         u = torch.rand((), generator=rng, device=device)
         traj_t = u * torch.exp(logT)
         n_leap = _leapfrog_count(u, torch.exp(logT), eps, max_leapfrog)
-        traces, (probs, q0, q1, p1) = _hmc_step_collecting(rng, traces, selection, eps, n_leap, inv_mass)
-        grad = _chees_grad_logT(probs, q0, q1, p1, inv_mass, traj_t)
+        moved = [_hmc_step_collecting(g, tr, selection, eps, n_leap, inv_mass) for g, tr in zip(streams, blocks)]
+        blocks = [tr for tr, _ in moved]
+        grad, mean_prob = chees_statistics(stats, [c for _, c in moved], inv_mass, traj_t)
         opt, delta = opt.step(grad)
         logT = torch.clamp(logT + delta, math.log(1e-2), math.log(1e3))
-        mean_prob = probs.mean()
         da = da_update(da, mean_prob, target=target)
         hist.append(mean_prob)
-    return traces, da, logT, opt, torch.stack(hist)
+    return blocks, da, logT, opt, torch.stack(hist)
+
+
+def chees_blocks(
+    rng: torch.Generator,
+    streams: list[torch.Generator],
+    blocks: list[Trace[Any]],
+    stats: DenseChains | ChainShards,
+    selection: Selection,
+    n_steps: int,
+    *,
+    eps0: float = 0.1,
+    T0: float = 1.0,
+    target_accept: float = 0.651,
+    adapt_mass: bool = True,
+    max_leapfrog: int = 1024,
+) -> tuple[list[Trace[Any]], ChEESResult]:
+    """`chees_warmup`'s schedule: `blocks[i]` moves on `streams[i]`, the
+    shared jitter comes from `rng`, and every statistic is `stats`' (of
+    the one batch, or global over a sharded chain axis: a rank's own block,
+    or every rank's block in the stitched dense reference). A new metric
+    restarts the step size and keeps T (its optimum moves less than the
+    stability limit does)."""
+    device = blocks[0].get_score().device
+    n1, n2, n3 = phase_lengths(n_steps)
+    da = da_init(eps0, device)
+    logT = torch.full((), math.log(T0), device=device)
+    opt = _Adam.init(device)
+    inv_mass = None
+    blocks, da, logT, opt, _ = _chees_phase(
+        rng, streams, blocks, stats, selection, inv_mass, da, logT, opt, n1, target_accept, max_leapfrog
+    )
+    if adapt_mass:
+        inv_mass = stats.inv_mass(blocks, selection)
+        da = da_init(1.0, device)
+    blocks, da, logT, opt, _ = _chees_phase(
+        rng, streams, blocks, stats, selection, inv_mass, da, logT, opt, n2, target_accept, max_leapfrog
+    )
+    if adapt_mass:
+        inv_mass = stats.inv_mass(blocks, selection)
+    blocks, da, logT, opt, accept_hist = _chees_phase(
+        rng, streams, blocks, stats, selection, inv_mass, da, logT, opt, n3, target_accept, max_leapfrog
+    )
+    return blocks, ChEESResult(
+        eps=da_final(da), trajectory_length=torch.exp(logT), inv_mass=inv_mass, accept_rate=accept_hist.mean()
+    )
 
 
 def chees_warmup(
@@ -217,6 +315,8 @@ def chees_warmup(
     adapt_mass: bool = True,
     max_leapfrog: int = 1024,
     n_chains: int | None = None,
+    mesh=None,
+    axis: str = "chains",
 ) -> tuple[Trace[Any], ChEESResult]:
     """Adapt the step size, the trajectory length and (with `adapt_mass`)
     the diagonal mass matrix of a chain batch, with the phase schedule of
@@ -235,35 +335,19 @@ def chees_warmup(
     >>> warmed, res = chees_warmup(rng, trs, gx.Selection.at["mu"], n_steps=60)
     >>> bool(res.eps > 0), bool(res.trajectory_length > 0)
     (True, True)
-    """
-    if n_chains is None:
-        n_chains = traces.particle_count()
-    device = traces.get_score().device
-    n1, n2, n3 = phase_lengths(n_steps)
-    da = da_init(eps0, device)
-    logT = torch.full((), math.log(T0), device=device)
-    opt = _Adam.init(device)
-    inv_mass = None
 
-    traces, da, logT, opt, _ = _chees_phase(
-        rng, traces, selection, inv_mass, da, logT, opt, n1, target_accept, max_leapfrog
+    With `mesh`, `traces` are this rank's chains of a batch whose chain
+    axis spans the mesh's `axis` (`n_chains`, where given, the global
+    count): the rank's chains draw from `fork(rng, n)[rank]`, u from `rng`
+    itself, every statistic is global, and every rank returns its own
+    warmed chains with the same result.
+    """
+    stats = chain_statistics(traces, n_chains, mesh, axis)
+    (traces,), result = chees_blocks(
+        rng, chain_streams(rng, mesh, axis), [traces], stats, selection, n_steps, eps0=eps0, T0=T0,
+        target_accept=target_accept, adapt_mass=adapt_mass, max_leapfrog=max_leapfrog,
     )
-    if adapt_mass:
-        inv_mass = cross_chain_inv_mass(traces, selection, n_chains)
-        # A new metric: restart the step size and keep T (its optimum moves
-        # less than the stability limit does).
-        da = da_init(1.0, device)
-    traces, da, logT, opt, _ = _chees_phase(
-        rng, traces, selection, inv_mass, da, logT, opt, n2, target_accept, max_leapfrog
-    )
-    if adapt_mass:
-        inv_mass = cross_chain_inv_mass(traces, selection, n_chains)
-    traces, da, logT, opt, accept_hist = _chees_phase(
-        rng, traces, selection, inv_mass, da, logT, opt, n3, target_accept, max_leapfrog
-    )
-    return traces, ChEESResult(
-        eps=da_final(da), trajectory_length=torch.exp(logT), inv_mass=inv_mass, accept_rate=accept_hist.mean()
-    )
+    return traces, result
 
 
 def run_chees_chains(

@@ -314,6 +314,17 @@ class NUTS(EditRequest):
         )
 
 
+def nuts_step(selection: Selection, max_depth: int):
+    """One NUTS draw on a batch with its accept statistic, for
+    `adaptation.adapt_blocks`."""
+
+    def step(rng, traces, eps, inv_mass):
+        traces, info = nuts_kernel(rng, traces, selection, eps, max_depth, inv_mass)
+        return traces, info.accept_stat
+
+    return step
+
+
 def nuts_warmup(
     rng: torch.Generator,
     traces: Trace[Any],
@@ -325,45 +336,24 @@ def nuts_warmup(
     target_accept: float = 0.8,
     adapt_mass: bool = True,
     n_chains: int | None = None,
+    mesh=None,
+    axis: str = "chains",
 ):
     """Warm up a chain batch for NUTS: dual-average a shared step size on
     the cross-chain mean accept statistic and, with `adapt_mass`, estimate
     a shared diagonal mass matrix, with the three-phase schedule of
     `adaptation.warmup_chains`. Returns `(warmed_traces, WarmupResult)`;
     sample with `NUTS(sel, result.eps, max_depth, result.inv_mass)`. No
-    step reads the device on the host."""
-    from genjax_tpu_torch.inference.adaptation import (
-        WarmupResult,
-        cross_chain_inv_mass,
-        da_final,
-        da_init,
-        da_update,
-        phase_lengths,
+    step reads the device on the host.
+
+    With `mesh`, `traces` are this rank's chains of a batch whose chain
+    axis spans the mesh's `axis`, as `warmup_chains` takes them: the
+    rank's draws come from `fork(rng, n)[rank]`, and the mean accept
+    statistic and the mass matrix are global."""
+    from genjax_tpu_torch.inference.adaptation import adapt_blocks, chain_statistics, chain_streams
+
+    (traces,), result = adapt_blocks(
+        chain_streams(rng, mesh, axis), [traces], chain_statistics(traces, n_chains, mesh, axis), selection,
+        n_steps, nuts_step(selection, max_depth), eps0, target_accept, adapt_mass,
     )
-
-    if n_chains is None:
-        n_chains = traces.particle_count()
-    device = traces.get_score().device
-
-    def phase(traces, da, inv_mass, n):
-        hist = []
-        for _ in range(n):
-            traces, info = nuts_kernel(rng, traces, selection, torch.exp(da.log_eps), max_depth, inv_mass)
-            stat = info.accept_stat.mean()
-            da = da_update(da, stat, target=target_accept)
-            hist.append(stat)
-        return traces, da, torch.stack(hist)
-
-    n1, n2, n3 = phase_lengths(n_steps)
-    inv_mass = None
-    traces, da, _ = phase(traces, da_init(eps0, device), inv_mass, n1)
-    if adapt_mass:
-        inv_mass = cross_chain_inv_mass(traces, selection, n_chains)
-        # The metric changed: restart averaging from eps = 1 (as
-        # adaptation.warmup_chains does).
-        da = da_init(1.0, device)
-    traces, da, _ = phase(traces, da, inv_mass, n2)
-    if adapt_mass:
-        inv_mass = cross_chain_inv_mass(traces, selection, n_chains)
-    traces, da, hist = phase(traces, da, inv_mass, n3)
-    return traces, WarmupResult(eps=da_final(da), inv_mass=inv_mass, accept_rate=hist.mean())
+    return traces, result

@@ -39,6 +39,15 @@ class handler_context:
         return False
 
 
+def current_handler() -> TraceHandler:
+    """The innermost installed handler: where a handler that rewrites a
+    site before the method's own handler sees it forwards the site."""
+    stack = _stack()
+    if not stack:
+        raise RuntimeError("current_handler() outside a GFI method")
+    return stack[-1]
+
+
 def static_check_address(addr) -> None:
     components = addr if isinstance(addr, tuple) else (addr,)
     for comp in components:

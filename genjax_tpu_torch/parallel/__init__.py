@@ -10,13 +10,17 @@ the collectives of `parallel/collectives.py`, each on a named mesh axis
 and counted (`collectives.stats()`). `parallel/launch.py` spawns the ranks
 of a run on one host; `parallel/certify.py` holds the stitched dense
 references and the rank bodies that the tests, `entry.dryrun_multichip`
-and `chip_smoke.py` run.
+and `chip_smoke.py` run. `parallel/data.py::data_sharded` splits a
+model's observations over the ranks (the counterpart of a sharded data
+operand under GSPMD); the warmups take a `mesh` of their own
+(`inference/adaptation.py`).
 
 Importing this package touches no process group: every function that
 needs one takes its `Mesh`.
 """
 
 from genjax_tpu_torch.parallel.chains import sharded_mh_chains
+from genjax_tpu_torch.parallel.data import data_sharded
 from genjax_tpu_torch.parallel.grid import GridSMC, grid_mesh
 from genjax_tpu_torch.parallel.mesh import particle_mesh, shard_leading_axis
 from genjax_tpu_torch.parallel.multihost import (
@@ -39,6 +43,7 @@ from genjax_tpu_torch.parallel.svgd import sharded_stein_direction, sharded_svgd
 __all__ = [
     "GridSMC",
     "ShardedSMC",
+    "data_sharded",
     "sharded_stein_direction",
     "sharded_svgd",
     "global_from_process_local",

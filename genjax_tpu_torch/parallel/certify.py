@@ -8,7 +8,15 @@ tempering exchange, the Stein interaction) done on the stitched blocks by
 the dense port. That single-process run is the stitched dense reference:
 at n = 1 it is the dense driver itself fed `fork(rng, 1)[0]`. The
 references here (`stitch`, `blocks_of`, `StitchedSMC`, `StitchedGrid`,
-`stitched_pt`, `stitched_svgd`) use the dense port only, no collective.
+`stitched_pt`, `stitched_svgd`, `stitched_warmup`, `stitched_chees`,
+`stitched_nuts`) use the dense port only, no collective. A warmup's
+cross-chain statistics are the blocks' float64 partial sums added in rank
+order (`adaptation.ChainShards` without a mesh), where a rank all-reduces
+them.
+
+A data-sharded model (`parallel/data.py`) has no stitched reference: its
+ranks move the same replicated chains, so it is held against the dense
+model on the whole data from the same generator.
 
 The rank bodies (`*_rank_body`) run on every rank of a
 `parallel/launch.py` launch and return plain data (numpy arrays, floats,
@@ -29,11 +37,16 @@ import torch.utils._pytree as pytree
 
 from genjax_tpu_torch.adev.core import fork
 from genjax_tpu_torch.core.choice_map import ChoiceMap, Selection
+from genjax_tpu_torch.core.diff import Diff
 from genjax_tpu_torch.core.gather import batched_mask, take_rows
+from genjax_tpu_torch.core.gfi import Trace
 from genjax_tpu_torch.core.requests import Regenerate
 from genjax_tpu_torch.distributions.library import flip, mv_normal_diag, normal
+from genjax_tpu_torch.inference.adaptation import ChainShards, adapt_blocks, mh_step
+from genjax_tpu_torch.inference.chees import chees_blocks
 from genjax_tpu_torch.inference.mcmc import run_chains, share_chain_args
 from genjax_tpu_torch.inference.parallel_tempering import ParallelTempering, PTResult, deo_exchange
+from genjax_tpu_torch.inference.requests.nuts import nuts_step
 from genjax_tpu_torch.inference.smc import (
     ParticleCollection,
     SMCDriver,
@@ -303,6 +316,57 @@ def stitched_svgd(rng: torch.Generator, model, args, observations, selection, n_
         phi, _ = stein_direction(x, g, bandwidth)
         x = x + step_size * phi
     return x
+
+
+def stitched_warmup(rng: torch.Generator, blocks: list, selection, n_steps: int, *, algorithm: str = "hmc",
+                    L: int = 10, eps0: float = 0.1, target_accept: float | None = None, adapt_mass: bool = True,
+                    jitter: float = 0.2):
+    """`warmup_chains(..., mesh=)` on `len(blocks)` ranks in one process:
+    (the ranks' warmed blocks, the result)."""
+    if target_accept is None:
+        target_accept = 0.8 if algorithm == "hmc" else 0.574
+    shards = ChainShards(sum(b.particle_count() for b in blocks))
+    return adapt_blocks(fork(rng, len(blocks)), blocks, shards, selection, n_steps,
+                        mh_step(algorithm, selection, L, jitter), eps0, target_accept, adapt_mass)
+
+
+def stitched_chees(rng: torch.Generator, blocks: list, selection, n_steps: int, **kw):
+    """`chees_warmup(..., mesh=)` on `len(blocks)` ranks in one process."""
+    shards = ChainShards(sum(b.particle_count() for b in blocks))
+    return chees_blocks(rng, fork(rng, len(blocks)), blocks, shards, selection, n_steps, **kw)
+
+
+def stitched_nuts(rng: torch.Generator, blocks: list, selection, n_steps: int, *, max_depth: int = 6,
+                  eps0: float = 0.1, target_accept: float = 0.8, adapt_mass: bool = True):
+    """`nuts_warmup(..., mesh=)` on `len(blocks)` ranks in one process."""
+    shards = ChainShards(sum(b.particle_count() for b in blocks))
+    return adapt_blocks(fork(rng, len(blocks)), blocks, shards, selection, n_steps, nuts_step(selection, max_depth),
+                        eps0, target_accept, adapt_mass)
+
+
+def warmup_numbers(result) -> dict:
+    """A warmup result's eps, accept rate, trajectory length (ChEES) and
+    inverse mass leaves, as numpy."""
+    out = {"eps": result.eps.cpu().numpy(), "accept_rate": result.accept_rate.cpu().numpy(),
+           "inv_mass": leaves_np(result.inv_mass)}
+    if hasattr(result, "trajectory_length"):
+        out["T"] = result.trajectory_length.cpu().numpy()
+    return out
+
+
+def warmup_gap(got: dict, ref: dict) -> float:
+    """The largest relative gap between two `warmup_numbers`: eps, T and
+    every inverse-mass entry (0 where they are equal bit for bit)."""
+    pairs = [(got["eps"], ref["eps"])] + list(zip(got["inv_mass"], ref["inv_mass"]))
+    if "T" in ref:
+        pairs.append((got["T"], ref["T"]))
+    return max(float(np.max(np.abs(np.asarray(a, np.float64) - b) / np.abs(np.asarray(b, np.float64)))) for a, b in pairs)
+
+
+def warmup_equal(got: dict, ref: dict) -> bool:
+    keys = ("eps", "T") if "T" in ref else ("eps",)
+    return all(np.array_equal(got[k], ref[k]) for k in keys) and all(
+        np.array_equal(a, b) for a, b in zip(got["inv_mass"], ref["inv_mass"]))
 
 
 #######################
@@ -598,6 +662,208 @@ def pt_svgd_rank_body(rank: int, world: int, seed: int, device: str = "cpu") -> 
     return out
 
 
+@gen
+def two_sites():
+    a = normal(0.0, 0.1) @ "a"
+    _ = mv_normal_diag(torch.zeros(3), 10.0 * torch.ones(3)) @ "b"
+    return a
+
+
+# The warmup cases of `tests/test_torch_parallel_warmup_data.py`: JAX's
+# `tests/parallel/test_sharded_warmup.py` sizes, the statistical cases
+# replicated from independent generators; `pairs`, one
+# `chees_pairs_rank_body` pair per rank on eight schools.
+WARMUP = dict(n_chains=64, n_steps=40, L=5, max_leapfrog=16, replicates=8, nuts_steps=12, nuts_depth=4,
+              pairs=dict(n_chains=8, n_steps=10, max_leapfrog=16))
+# The data-sharded cases: logistic regression at N data, D features, C chains.
+DATA = dict(n=256, d=8, c=16, eps=0.02, L=5, steps=5)
+
+
+def warmup_inputs(seed: int, n_chains: int) -> dict:
+    """Chain rows for `cross_chain_inv_mass` (`two_sites`' a and b) and for
+    the ChEES gradient (end points with a diverged chain of each kind)."""
+    rng = np.random.default_rng(seed)
+    c = n_chains
+    q0 = {"v": rng.standard_normal((c, 2)).astype(np.float32), "x": rng.standard_normal(c).astype(np.float32)}
+    q1 = {k: (v + 0.5 * rng.standard_normal(v.shape)).astype(np.float32) for k, v in q0.items()}
+    q1["x"][3], q1["v"][c // 2 + 1, 1] = np.inf, np.nan
+    probs = rng.random(c).astype(np.float32)
+    probs[3] = probs[c // 2 + 1] = 0.0
+    return {"a": (0.1 * rng.standard_normal(c)).astype(np.float32),
+            "b": (10.0 * rng.standard_normal((c, 3))).astype(np.float32),
+            "probs": probs, "q0": q0, "q1": q1,
+            "p1": {k: rng.standard_normal(v.shape).astype(np.float32) for k, v in q0.items()},
+            "im": {"v": np.array([1.5, 0.3], np.float32), "x": np.float32(0.7)}, "traj_t": np.float32(1.7)}
+
+
+def data_inputs(seed: int, n: int, d: int, c: int) -> dict:
+    """Logistic-regression data `(X, ys)` and two weight batches `(C, D)`."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    w_true = rng.standard_normal(d).astype(np.float32)
+    ys = (rng.random(n) < 1.0 / (1.0 + np.exp(-X @ w_true))).astype(np.int32)
+    return {"X": X, "ys": ys, "w": (0.5 * rng.standard_normal((c, d))).astype(np.float32),
+            "w2": (0.5 * rng.standard_normal((c, d))).astype(np.float32)}
+
+
+def warmup_start(seed: int, n_chains: int, device) -> Trace:
+    """The whole chain batch of a warmup case, drawn alike on every rank
+    (each rank keeps its block)."""
+    traces, _ = conj_mu.importance(_gen(seed, device), ChoiceMap.kw(y=1.0), (), n=n_chains)
+    return traces
+
+
+def eight_schools_start(seed: int, n_chains: int, device):
+    """Eight-schools chains started as `run_eight_schools` starts them
+    (log tau Uniform(-2, 2) per chain, the rest from the prior), and the
+    selection of every latent."""
+    from genjax_tpu_torch.core.typing import per_particle
+    from genjax_tpu_torch.models.hierarchical import EIGHT_SCHOOLS_SIGMA, EIGHT_SCHOOLS_Y, eight_schools
+
+    y, sigma = EIGHT_SCHOOLS_Y.to(device), EIGHT_SCHOOLS_SIGMA.to(device)
+    init = _gen(seed, device)
+    log_tau = per_particle(4.0 * torch.rand(n_chains, generator=init, device=device) - 2.0)
+    start, _ = eight_schools.importance(init, ChoiceMap.kw(ys=y, log_tau=log_tau), (sigma,), n=n_chains)
+    return start, ~ChoiceMap.kw(ys=y).get_selection()
+
+
+def chees_pairs_rank_body(rank: int, world: int, seeds: list, n_chains: int, n_steps: int, max_leapfrog: int,
+                          device: str = "cpu") -> list:
+    """Independent pairs of `chees_warmup` runs on eight schools, the pairs
+    of `seeds[rank::world]` on this rank. A pair starts from
+    `eight_schools_start(seed)` and runs the warmup over a one-rank chain
+    axis (each rank its own: a `(world, 1)` mesh) and the plain dense
+    warmup, each on a generator seeded `seed + 1`. Per run: log eps, log T,
+    the accept rate, every log inverse-mass entry, leapfrog steps per ChEES
+    step and seconds."""
+    import time
+
+    from genjax_tpu_torch.inference.chees import chees_stats, chees_warmup
+    from genjax_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((world, 1), ("replicates", "chains"), device_type=device)
+    out = []
+    for seed in seeds[rank::world]:
+        start, sel = eight_schools_start(seed, n_chains, device)
+        pair = {}
+        for kind, m in (("sharded", mesh), ("dense", None)):
+            leapfrogs, t0 = chees_stats["leapfrog_total"], time.perf_counter()
+            _, res = chees_warmup(_gen(seed + 1, device), start, sel, n_steps=n_steps, max_leapfrog=max_leapfrog,
+                                  mesh=m)
+            pair[kind] = {"log eps": math.log(float(res.eps)), "log T": math.log(float(res.trajectory_length)),
+                          "accept": float(res.accept_rate),
+                          "log inv_mass": [float(v) for v in torch.cat(
+                              [torch.log(x.double()).reshape(-1) for x in pytree.tree_leaves(res.inv_mass)])],
+                          "leapfrogs": (chees_stats["leapfrog_total"] - leapfrogs) / n_steps,
+                          "seconds": time.perf_counter() - t0}
+        out.append(pair)
+    return out
+
+
+def warmup_data_rank_body(rank: int, world: int, seed: int, device: str = "cpu") -> dict:
+    """The cases of `tests/test_torch_parallel_warmup_data.py`: the sharded
+    cross-chain statistics, the sharded warmups (`WARMUP["replicates"]`
+    independent ones each for `warmup_chains` and `chees_warmup`, one for
+    `nuts_warmup`), and logistic regression with its data split over the
+    ranks (assess and its gradient, importance, the edits, HMC), with the
+    collectives' record of each; and one `chees_pairs_rank_body` pair per
+    rank."""
+    from genjax_tpu_torch import convert
+    from genjax_tpu_torch.core.gfi import Update
+    from genjax_tpu_torch.core.typing import per_particle
+    from genjax_tpu_torch.inference.adaptation import cross_chain_inv_mass, warmup_chains
+    from genjax_tpu_torch.inference.chees import chees_statistics, chees_warmup
+    from genjax_tpu_torch.inference.requests import HMC
+    from genjax_tpu_torch.inference.requests.nuts import nuts_warmup
+    from genjax_tpu_torch.models.logreg import logistic_regression
+    from genjax_tpu_torch.parallel import particle_mesh
+    from genjax_tpu_torch.parallel.data import data_sharded
+
+    cmesh = particle_mesh(axis_name="chains", device_type=device)
+    out: dict = {}
+    cfg = WARMUP
+    n = cfg["n_chains"]
+    per = n // world
+    lo, hi = rank * per, (rank + 1) * per
+
+    inp = warmup_inputs(seed, n)
+    local = convert.chain_batch(two_sites, (), {"a": inp["a"][lo:hi], "b": inp["b"][lo:hi]}, device=device)
+    C.reset_stats()
+    im = cross_chain_inv_mass(local, Selection.at["a"] | Selection.at["b"], mesh=cmesh)
+    out["inv_mass"] = {"a": im["a"].cpu().numpy(), "b": im["b"].cpu().numpy(), "stats": C.stats()}
+
+    def t(x):
+        return torch.as_tensor(x[lo:hi]).to(device)
+
+    order = sorted(inp["q0"])
+    collected = [(t(inp["probs"]), *([t(inp[k][name]) for name in order] for k in ("q0", "q1", "p1")))]
+    shards = ChainShards(n, cmesh, "chains")
+    out["grad_logT"] = {
+        case: float(chees_statistics(shards, collected, mass, torch.tensor(inp["traj_t"], device=device))[0])
+        for case, mass in (("unit", None), ("mass", [torch.tensor(inp["im"][k], device=device) for k in order]))
+    }
+
+    sel = Selection.at["mu"]
+    runs = {"warmup": [], "chees": []}
+    for r in range(cfg["replicates"]):
+        block = blocks_of(warmup_start(seed + 100 + r, n, device), world)[rank]
+        C.reset_stats()
+        warmed, res = warmup_chains(_gen(seed + 200 + r, device), block, sel, n_steps=cfg["n_steps"], L=cfg["L"],
+                                    mesh=cmesh)
+        runs["warmup"].append({**warmup_numbers(res), "mu": warmed.get_choices()["mu"].cpu().numpy(),
+                               "stats": C.stats()})
+        C.reset_stats()
+        warmed, res = chees_warmup(_gen(seed + 300 + r, device), block, sel, n_steps=cfg["n_steps"],
+                                   max_leapfrog=cfg["max_leapfrog"], mesh=cmesh)
+        runs["chees"].append({**warmup_numbers(res), "mu": warmed.get_choices()["mu"].cpu().numpy(),
+                              "stats": C.stats()})
+    out.update(runs)
+    block = blocks_of(warmup_start(seed + 400, n, device), world)[rank]
+    warmed, res = nuts_warmup(_gen(seed + 401, device), block, sel, n_steps=cfg["nuts_steps"],
+                              max_depth=cfg["nuts_depth"], mesh=cmesh)
+    out["nuts"] = {**warmup_numbers(res), "mu": warmed.get_choices()["mu"].cpu().numpy()}
+
+    # Logistic regression with its data split over the ranks.
+    d = DATA
+    dmesh = particle_mesh(axis_name="data", device_type=device)
+    data = data_inputs(seed, d["n"], d["d"], d["c"])
+    rows = slice(rank * d["n"] // world, (rank + 1) * d["n"] // world)
+    X, ys = (torch.as_tensor(data[k][rows]).to(device) for k in ("X", "ys"))
+    model = data_sharded(logistic_regression, dmesh, ["ys"], data_args=(0,))
+    w = torch.as_tensor(data["w"]).to(device).requires_grad_()
+    C.reset_stats()
+    score, _ = model.assess(ChoiceMap.kw(w=per_particle(w), ys=ys), (X,), n=d["c"])
+    (grad,) = torch.autograd.grad(score.sum(), w)
+    out["assess"] = {"score": score.detach().cpu().numpy(), "grad": grad.cpu().numpy(), "stats": C.stats()}
+    w = w.detach()
+    fixed = ChoiceMap.kw(w=per_particle(w), ys=ys)
+    traces, lw = model.importance(_gen(seed + 5, device), fixed, (X,), n=d["c"])
+    out["importance"] = {"lw": lw.cpu().numpy(), "score": traces.get_score().cpu().numpy()}
+    traces = share_chain_args(traces, (X,))
+    same = Diff.no_change(traces.get_args())
+    new, uw, _, _ = Update(ChoiceMap.kw(w=per_particle(torch.as_tensor(data["w2"]).to(device)))).edit(
+        _gen(seed + 6, device), traces, same)
+    regen, rw, _, _ = Regenerate(Selection.at["w"]).edit(_gen(seed + 7, device), traces, same)
+    out["edits"] = {"update_w": uw.cpu().numpy(), "update_score": new.get_score().cpu().numpy(),
+                    "regenerate_w": rw.cpu().numpy(), "regenerate_score": regen.get_score().cpu().numpy(),
+                    "regenerated": regen.get_choices()["w"].cpu().numpy()}
+    sim = model.simulate(_gen(seed + 8, device), (X,), n=d["c"])
+    again, _ = model.assess(sim.get_choices(), (X,), n=d["c"])
+    out["simulate"] = {"score": sim.get_score().cpu().numpy(), "assess": again.cpu().numpy()}
+
+    start, _ = model.importance(_gen(seed + 9, device), ChoiceMap.kw(ys=ys), (X,), n=d["c"])
+    start = share_chain_args(start, (X,))
+    C.reset_stats()
+    finals, accs = run_chains(_gen(seed + 10, device), start, HMC(Selection.at["w"], d["eps"], L=d["L"]), d["steps"])
+    out["hmc"] = {"score": finals.get_score().cpu().numpy(), "w": finals.get_choices()["w"].cpu().numpy(),
+                  "accs": accs.cpu().numpy(), "stats": C.stats()}
+    p = WARMUP["pairs"]
+    out["chees_pairs"] = chees_pairs_rank_body(rank, world, [seed + 300 + i for i in range(world)], p["n_chains"],
+                                               p["n_steps"], p["max_leapfrog"], device)
+    out["foreign_modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "genjax_tpu"))
+    return out
+
+
 def _equal(got, ref) -> bool:
     a, b = leaves_np(got), leaves_np(ref)
     return len(a) == len(b) and all(x.shape == y.shape and np.array_equal(x, y, equal_nan=True) for x, y in zip(a, b))
@@ -620,8 +886,9 @@ def dryrun_rank_body(rank: int, world: int, device: str, k_per_rank: int = 32768
     `k_per_rank` particles per rank, its resample of degenerate weights and
     the all-gather fallback on its own, the MH chains, GridSMC and island
     SMC (on an even number of ranks), SVGD, tempered SMC and parallel
-    tempering. Returns the rank's numbers and the collectives' record of
-    each section."""
+    tempering, then the warmups over the chain axis and data-sharded HMC
+    (`warmup_section`). Returns the rank's numbers and the collectives'
+    record of each section."""
     from genjax_tpu_torch.core.choice_map import ChoiceMap as CM
     from genjax_tpu_torch.inference.requests import GaussianDrift
     from genjax_tpu_torch.inference.tempered import TemperedSMC
@@ -754,4 +1021,72 @@ def dryrun_rank_body(rank: int, world: int, device: str, k_per_rank: int = 32768
     _check(bool(torch.equal(res.collected, res_ref.collected) and torch.equal(res.perm, res_ref.perm)),
            "sharded PT differs from the stitched dense run")
     out["stats"]["pt"] = C.stats()
+    out.update(warmup_section(rank, world, device, cmesh))
+    out["stats"].update(out.pop("section_stats"))
+    return out
+
+
+def warmup_section(rank: int, world: int, device: str, cmesh) -> dict:
+    """The dry run's two sections after JAX's GSPMD ones: `warmup_chains`
+    and `chees_warmup` over the chain axis (8 chains per rank, 10 steps, as
+    JAX's dry run) against the stitched dense warmup (eps, T and every
+    inverse-mass entry within 1e-5 relative, JAX's dry-run rule; whether
+    they are equal bit for bit is returned), and HMC on logistic regression
+    with its data split over the ranks against the dense model on the
+    whole data from the same generator (scores and the final `w` within
+    1e-5 relative; every collective an all-reduce on "data" of at most
+    C D floats)."""
+    from genjax_tpu_torch.inference.adaptation import warmup_chains
+    from genjax_tpu_torch.inference.chees import chees_warmup
+    from genjax_tpu_torch.inference.requests import HMC
+    from genjax_tpu_torch.models.logreg import logistic_regression
+    from genjax_tpu_torch.parallel import particle_mesh
+    from genjax_tpu_torch.parallel.data import data_sharded
+
+    out: dict = {"section_stats": {}, "bitwise": {}}
+    sel = Selection.at["mu"]
+    blocks = blocks_of(warmup_start(12, 8 * world, device), world)
+    for name, run, stitched in (
+        ("warmup", lambda b, m: warmup_chains(_gen(13, device), b, sel, n_steps=10, L=3, mesh=m),
+         lambda: stitched_warmup(_gen(13, device), blocks, sel, 10, L=3)),
+        ("chees", lambda b, m: chees_warmup(_gen(14, device), b, sel, n_steps=10, max_leapfrog=16, mesh=m),
+         lambda: stitched_chees(_gen(14, device), blocks, sel, 10, max_leapfrog=16)),
+    ):
+        C.reset_stats()
+        warmed, res = run(blocks[rank], cmesh)
+        out["section_stats"][name] = C.stats()
+        ref_blocks, ref = stitched()
+        got, want = warmup_numbers(res), warmup_numbers(ref)
+        gap = warmup_gap(got, want)
+        _check(gap <= 1e-5, f"sharded {name} is {gap:.2e} (relative) off the stitched dense warmup")
+        mu, mu_ref = warmed.get_choices()["mu"], ref_blocks[rank].get_choices()["mu"]
+        _check(bool(((mu - mu_ref).abs() <= 1e-5 * mu_ref.abs().clamp(min=1.0)).all()),
+               f"sharded {name}'s chains off the stitched ones")
+        out["bitwise"][name] = warmup_equal(got, want) and bool(torch.equal(mu, mu_ref))
+        out[f"{name}_eps"] = float(res.eps)
+
+    d = dict(n=256, d=16, c=64, eps=0.02, L=5, steps=5)
+    dmesh = particle_mesh(axis_name="data", device_type=device)
+    data = data_inputs(15, d["n"], d["d"], d["c"])
+    X_all, ys_all = (torch.as_tensor(data[k]).to(device) for k in ("X", "ys"))
+    per = d["n"] // world
+    X, ys = X_all[rank * per : (rank + 1) * per], ys_all[rank * per : (rank + 1) * per]
+    model = data_sharded(logistic_regression, dmesh, ["ys"], data_args=(0,))
+    start = share_chain_args(model.importance(_gen(16, device), ChoiceMap.kw(ys=ys), (X,), n=d["c"])[0], (X,))
+    dense = logistic_regression.importance(_gen(16, device), ChoiceMap.kw(ys=ys_all), (X_all,), n=d["c"])[0]
+    dense = share_chain_args(dense, (X_all,))
+    req = HMC(Selection.at["w"], d["eps"], L=d["L"])
+    C.reset_stats()
+    finals, _ = run_chains(_gen(17, device), start, req, d["steps"])
+    stats = C.stats()
+    ref, _ = run_chains(_gen(17, device), dense, req, d["steps"])
+    s, s_ref = finals.get_score(), ref.get_score()
+    _check(bool(((s - s_ref).abs() <= 1e-5 * s_ref.abs()).all()), "data-sharded HMC scores off the dense run's")
+    w, w_ref = finals.get_choices()["w"], ref.get_choices()["w"]
+    _check(bool(((w - w_ref).abs() <= 1e-5 * w_ref.abs().clamp(min=1.0)).all()), "data-sharded HMC's w off the dense run's")
+    kinds = {k: v for k, v in stats.get("data", {}).items() if v["calls"]}
+    _check(set(stats) == {"data"} and set(kinds) == {"all_reduce"}
+           and kinds["all_reduce"]["bytes"] <= kinds["all_reduce"]["calls"] * d["c"] * d["d"] * 4,
+           f"data-sharded HMC's collectives are not chain-sized all-reduces on data: {stats}")
+    out["section_stats"]["data_hmc"] = stats
     return out

@@ -13,7 +13,11 @@ exactly one per step, the elliptical slice loop's host reads against its
 trips, each held against the CPU; and the incremental edits' plan: no
 synchronisation per Gibbs sweep and one analysis, a CUDA closure argument
 keyed without a host read, and one sweep's weights under the plan equal
-to the dense fallback plan's on the same generator state.
+to the dense fallback plan's on the same generator state; and the parallel
+layer on a one-rank group: the sharded reductions, the collectives'
+record, the warmups over the chain axis against the stitched dense ones
+(and their synchronisations), and data-sharded logistic regression
+against the dense model.
 
 These tests need a CUDA device (the kernel has no CPU mode) and skip
 without one. On a machine with the card and without JAX, run them with
@@ -1294,3 +1298,78 @@ def test_a_gloo_group_takes_cuda_tensors_in_its_collectives_unstaged(cuda, one_r
     assert out.is_cuda and bool((out == 2.0).all())
     assert gathered.is_cuda and torch.equal(gathered.cpu(), torch.arange(3.0))
     assert sent.is_cuda and C.stats()["particles"]["staged"] == {"calls": 0, "bytes": 0}
+
+
+def test_sharded_warmups_on_a_one_rank_nccl_group_equal_the_stitched_ones(cuda, one_rank_group):
+    """`warmup_chains`, `nuts_warmup` and `chees_warmup` over the chain axis
+    of a one-rank NCCL mesh: equal to the stitched dense warmup from
+    `fork(rng, 1)[0]` bit for bit (one block: the float64 sums in one
+    order), the float64 statistics all-reduced on "chains", and still one
+    synchronisation per ChEES step (the leapfrog count) and none per
+    `warmup_chains` step."""
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.inference.adaptation import warmup_chains
+    from genjax_tpu_torch.inference.chees import chees_warmup
+    from genjax_tpu_torch.inference.requests.nuts import nuts_warmup
+    from genjax_tpu_torch.parallel import certify, particle_mesh
+    from genjax_tpu_torch.parallel import collectives as C
+
+    mesh = particle_mesh(axis_name="chains", device_type="cuda")
+    _, chains = _logreg_chains(cuda, 1024)
+    sel = gx.Selection.at["w"]
+    cases = {
+        "warmup": (lambda g, m: warmup_chains(g, chains, sel, n_steps=20, L=3, mesh=m),
+                   lambda g: certify.stitched_warmup(g, [chains], sel, 20, L=3)),
+        "nuts": (lambda g, m: nuts_warmup(g, chains, sel, n_steps=6, max_depth=3, mesh=m),
+                 lambda g: certify.stitched_nuts(g, [chains], sel, 6, max_depth=3)),
+        "chees": (lambda g, m: chees_warmup(g, chains, sel, n_steps=12, max_leapfrog=32, mesh=m),
+                  lambda g: certify.stitched_chees(g, [chains], sel, 12, max_leapfrog=32)),
+    }
+    for name, (sharded, stitched) in cases.items():
+        C.reset_stats()
+        syncs, (warmed, res) = _count_syncs(lambda: sharded(torch.Generator(device=cuda).manual_seed(9), mesh))
+        assert syncs == {"warmup": 0, "nuts": 0, "chees": 12}[name], (name, syncs)
+        assert set(C.stats()) == {"chains"} and C.stats()["chains"]["all_reduce"]["calls"] > 0
+        blocks, ref = stitched(torch.Generator(device=cuda).manual_seed(9))
+        assert certify.warmup_equal(certify.warmup_numbers(res), certify.warmup_numbers(ref)), name
+        assert torch.equal(warmed.get_choices()["w"], blocks[0].get_choices()["w"]), name
+
+
+def test_data_sharded_logreg_on_a_one_rank_nccl_group_equals_the_dense_model(cuda, one_rank_group):
+    """Logistic regression with its data on a one-rank "data" axis: HMC from
+    the same generator equal to the dense run bit for bit with no
+    synchronisation (one all-reduce of a score per density pass and of a
+    gradient per backward), and importance at 100k particles with its LML
+    through K1 equal to the dense one."""
+    import genjax_tpu_torch as gx
+    from genjax_tpu_torch.inference.mcmc import share_chain_args
+    from genjax_tpu_torch.inference.requests import HMC
+    from genjax_tpu_torch.models import logreg
+    from genjax_tpu_torch.parallel import particle_mesh
+    from genjax_tpu_torch.parallel import collectives as C
+    from genjax_tpu_torch.parallel.data import data_sharded
+
+    mesh = particle_mesh(axis_name="data", device_type="cuda")
+    X, ys, _ = logreg.simulate_logreg_data(torch.Generator(device=cuda).manual_seed(1), 256, 16)
+    model = data_sharded(logreg.logistic_regression, mesh, ["ys"], data_args=(0,))
+    start = share_chain_args(
+        model.importance(torch.Generator(device=cuda).manual_seed(2), gx.ChoiceMap.kw(ys=ys), (X,), n=1024)[0], (X,))
+    dense = logreg.init_chains(torch.Generator(device=cuda).manual_seed(2), X, ys, 1024)
+    req = HMC(gx.Selection.at["w"], 0.02, L=4)
+    gx.run_chains(torch.Generator(device=cuda), start, req, 1)  # warm up
+    C.reset_stats()
+    syncs, (finals, accs) = _count_syncs(
+        lambda: gx.run_chains(torch.Generator(device=cuda).manual_seed(3), start, req, 3))
+    ref, ref_accs = gx.run_chains(torch.Generator(device=cuda).manual_seed(3), dense, req, 3)
+    assert syncs == 0
+    assert torch.equal(finals.get_choices()["w"], ref.get_choices()["w"]) and torch.equal(accs, ref_accs)
+    stats = C.stats()["data"]
+    assert stats["all_reduce"]["calls"] == 3 * (2 * 5 + 1) and stats["all_gather"]["calls"] == 0
+
+    before = fused_logsumexp.launches
+    _, lw = model.importance(torch.Generator(device=cuda).manual_seed(4), gx.ChoiceMap.kw(ys=ys), (X,), n=100_000)
+    lml = logsumexp(lw)
+    assert fused_logsumexp.launches - before == 1
+    _, ref_lw = logreg.logistic_regression.importance(torch.Generator(device=cuda).manual_seed(4),
+                                                      gx.ChoiceMap.kw(ys=ys), (X,), n=100_000)
+    assert torch.equal(lw, ref_lw) and float(lml) == float(logsumexp(ref_lw))

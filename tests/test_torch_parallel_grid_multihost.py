@@ -237,12 +237,19 @@ def test_dtensor_round_trip(ranks):
 def test_dryrun_multichip_certifies_every_driver_on_four_cpu_ranks():
     """The entry point itself on four gloo ranks (it raises on any failed
     check): every section runs, and the resample at healthy ESS moves the
-    weights and the neighbour blocks only."""
+    weights and the neighbour blocks only; the warmups over the chain axis
+    reduce on "chains" and data-sharded HMC on "data", all-reduces only,
+    and the warmups equal the stitched dense ones bit for bit."""
     results = dryrun_multichip(WORLD, device="cpu", timeout=120)
     assert [r["rank"] for r in results] == list(range(WORLD))
     for r in results:
-        sections = {"smc", "degenerate_resample", "far_fallback", "chains", "grid", "islands", "svgd", "pt"}
+        sections = {"smc", "degenerate_resample", "far_fallback", "chains", "grid", "islands", "svgd", "pt",
+                    "warmup", "chees", "data_hmc"}
         assert set(r["stats"]) == sections
+        for name, axis in (("warmup", "chains"), ("chees", "chains"), ("data_hmc", "data")):
+            assert set(r["stats"][name]) == {axis}
+            assert {k for k, v in r["stats"][name][axis].items() if v["calls"]} == {"all_reduce"}
+        assert r["bitwise"] == {"warmup": True, "chees": True}
         smc = r["stats"]["smc"]["particles"]
         assert smc["exchange"]["calls"] == 1 and smc["all_gather"] == {"calls": 1, "bytes": 4 * 32768 * WORLD}
         assert r["stats"]["degenerate_resample"]["particles"]["all_gather"]["calls"] == 2  # the far path
