@@ -26,6 +26,10 @@ wrappers off, `checked_mode()` adds the deeper checks of
 `torch.profiler` spans and traces, and operation counts.
 """
 
+import time as _time
+
+_import_start = _time.perf_counter_ns()  # `setup.package_import` (utils/profiling.py)
+
 from genjax_tpu_torch import adev, inference
 from genjax_tpu_torch.combinators import *  # noqa: F401,F403
 from genjax_tpu_torch.combinators import __all__ as _cmb_all
@@ -114,3 +118,7 @@ import sys as _sys  # noqa: E402
 from genjax_tpu_torch.core import typecheck as _typecheck  # noqa: E402
 
 _typecheck.instrument(_sys.modules[__name__])
+
+from genjax_tpu_torch.utils.profiling import record_setup as _record_setup  # noqa: E402
+
+_record_setup("setup.package_import", _import_start)

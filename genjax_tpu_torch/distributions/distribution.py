@@ -39,6 +39,7 @@ from genjax_tpu_torch.core.pytree import Const, Pytree, n_leaves
 from genjax_tpu_torch.core.requests import EmptyRequest, Regenerate
 from genjax_tpu_torch.core.staging import SHAPE_RNG
 from genjax_tpu_torch.core.typing import PerParticle, as_value, batch_dims, device_of, mark, nobeartype, plain
+from genjax_tpu_torch.utils.profiling import annotate
 
 R = TypeVar("R")
 
@@ -194,6 +195,7 @@ class Distribution(Generic[R], GenerativeFunction[R]):
         with DisableTorchFunctionSubclass():
             return self.random_weighted(rng, *args, n=n)
 
+    @annotate("dist.density")
     def _density(self, rng, v, args: tuple, depth: int = 0):
         """The elementwise density of `v`, which carries `depth` batch axes."""
         with DisableTorchFunctionSubclass():
@@ -214,6 +216,7 @@ class Distribution(Generic[R], GenerativeFunction[R]):
         w, v = self._draw(rng, args, n)
         return self._trace(args, v, w, len(n) if isinstance(n, tuple) else n is not None)
 
+    @annotate("dist.draw")
     def _fresh(self, rng, args, n, like):
         """A fresh draw `(density, value)`; with `like`, the parameters
         carry the batch axes that `like`'s do."""
@@ -501,6 +504,7 @@ class SampleShaped(Distribution):
         behind = v.movedim(tuple(range(s)), tuple(range(len(dims), len(dims) + s))) if dims else v
         return self._sum(w), behind.contiguous()
 
+    @annotate("dist.density")
     def _density(self, rng, v, args: tuple, depth: int = 0):
         if not isinstance(v, torch.Tensor) or v.dim() < depth + len(self.shape):
             return super()._density(rng, v, args, depth)

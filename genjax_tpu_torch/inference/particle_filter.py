@@ -10,6 +10,12 @@ JAX traces the step model once for every step (`lax.scan`); here the
 first step runs it with the state marked `per_particle`, and every later
 step reuses that trace's particle-axis record (`generate(..., like=)`),
 so the body runs on plain tensors.
+
+`filter_stats` counts, over every run in the process, the `steps` after
+the first (each with one ESS gate) and the `resamples` the gate fired (the
+final equal-weight resample not among them). The run's spans
+(`utils/profiling.py`) are `filter.run`, `filter.step`, `filter.gate`,
+`filter.gate_read`, `filter.resample` and `filter.take_rows`.
 """
 
 import math
@@ -24,11 +30,31 @@ from genjax_tpu_torch.core.pytree import Pytree, tree_map
 from genjax_tpu_torch.core.typing import per_particle
 from genjax_tpu_torch.inference.smc import RESAMPLERS
 from genjax_tpu_torch.ops import logsumexp, logsumexp_ess
+from genjax_tpu_torch.utils.profiling import annotate, span
+
+filter_stats = {"steps": 0, "resamples": 0}
 
 
 def _take_rows(z, idx: torch.Tensor):
     """The rows `idx` of every leaf of a per-particle state."""
     return tree_map(lambda v: v.index_select(0, idx), z)
+
+
+@annotate("filter.take_rows")
+def _copy_rows(z, idx: torch.Tensor):
+    """`_take_rows(z, idx)`, the module's `_take_rows` looked up by name at
+    each call."""
+    return _take_rows(z, idx)
+
+
+@annotate("filter.gate")
+def _gate_fires(ess: torch.Tensor, bound: float) -> bool:
+    """Whether the ESS gate fires, `ess < bound`: the host's read of the
+    comparison (`filter.gate_read`) waits for the device."""
+    return _read(ess < bound)
+
+
+_read = annotate("filter.gate_read")(bool)
 
 
 def _at(tree, t: int):
@@ -54,6 +80,7 @@ class BootstrapFilter(Pytree):
     resampling: str = Pytree.static(default="systematic")
     ess_threshold: float = Pytree.static(default=0.5)
 
+    @annotate("filter.run")
     def run(
         self,
         rng: torch.Generator,
@@ -86,7 +113,7 @@ class BootstrapFilter(Pytree):
         """
         n = self.n_particles
         log_n = math.log(n)
-        resampler = RESAMPLERS[self.resampling]
+        resampler = annotate("filter.resample")(RESAMPLERS[self.resampling])
         model_args = tuple(model_args)
 
         init_trs, lw = self.init_model.importance(
@@ -99,27 +126,30 @@ class BootstrapFilter(Pytree):
         trs = None  # the last step's trace, whose record the next step reuses
         T = pytree.tree_leaves(observations)[0].shape[0]
         for t in range(1, T):
-            args = (tree_map(per_particle, z), t, *model_args) if trs is None else (z, t, *model_args)
-            trs, ws = self.step_model.generate(
-                rng, ChoiceMap.kw(**{self.obs_addr: _at(observations, t)}), args, n, like=trs
-            )
-            z = trs.get_retval()
-            lw = lw + ws
-            lse, ess = logsumexp_ess(lw)
-            # The ESS gate is a host branch: reading the comparison waits
-            # for the device, one synchronisation per step.
-            if ess < self.ess_threshold * n:
-                lml = lml + lse - log_n
-                z = _take_rows(z, resampler(rng, lw, n, lse))
-                lw = torch.zeros_like(lw)
-                lse = log_n  # logsumexp of n zeros
-            if collect is not None:
-                collected.append(collect(z, lw))
+            with span("filter.step"):
+                args = (tree_map(per_particle, z), t, *model_args) if trs is None else (z, t, *model_args)
+                trs, ws = self.step_model.generate(
+                    rng, ChoiceMap.kw(**{self.obs_addr: _at(observations, t)}), args, n, like=trs
+                )
+                z = trs.get_retval()
+                lw = lw + ws
+                lse, ess = logsumexp_ess(lw)
+                # The ESS gate is a host branch: reading the comparison waits
+                # for the device, one synchronisation per step.
+                if _gate_fires(ess, self.ess_threshold * n):
+                    filter_stats["resamples"] += 1
+                    lml = lml + lse - log_n
+                    z = _copy_rows(z, resampler(rng, lw, n, lse))
+                    lw = torch.zeros_like(lw)
+                    lse = log_n  # logsumexp of n zeros
+                if collect is not None:
+                    collected.append(collect(z, lw))
+            filter_stats["steps"] += 1
         if lse is None:
             lse = logsumexp(lw)
         lml = lml + lse - log_n
         # One final resample so the returned states are equally weighted.
-        z_out = _take_rows(z, resampler(rng, lw, n, lse))
+        z_out = _copy_rows(z, resampler(rng, lw, n, lse))
         if collect is None:
             return lml, z_out
         return lml, z_out, pytree.tree_map(lambda *xs: torch.stack(xs), *collected)

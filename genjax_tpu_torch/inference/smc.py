@@ -40,6 +40,7 @@ from genjax_tpu_torch.core.pytree import Pytree
 from genjax_tpu_torch.core.typing import FloatArray
 from genjax_tpu_torch.inference.sp import Algorithm, SampleDistribution, Target, stack_runs
 from genjax_tpu_torch.ops import logsumexp, logsumexp_ess
+from genjax_tpu_torch.utils.profiling import annotate
 
 R = TypeVar("R")
 
@@ -247,6 +248,7 @@ class ParticleCollection(Generic[R], Pytree):
     def get_log_weights(self) -> torch.Tensor:
         return self.log_weights
 
+    @annotate("smc.lml")
     def get_log_marginal_likelihood_estimate(self) -> torch.Tensor:
         n = self.log_weights.shape[0]
         return logsumexp(self.log_weights) - math.log(n)
@@ -257,6 +259,7 @@ class ParticleCollection(Generic[R], Pytree):
     def __getitem__(self, idx):
         return self.get_particle(idx), self.log_weights[idx]
 
+    @annotate("smc.sample_particle")
     def sample_particle(self, rng: torch.Generator) -> Trace[R]:
         """One particle drawn in proportion to its weight (Gumbel-max over
         the normalized log weights, as `jax.random.categorical` draws)."""
@@ -417,6 +420,7 @@ class ImportanceK(Generic[R], SMCAlgorithm[R]):
     def get_final_target(self) -> Target[R]:
         return self.target
 
+    @annotate("smc.importance")
     def run_smc(self, rng: torch.Generator) -> ParticleCollection[R]:
         k = self.k_particles
         if self.q is None:

@@ -66,6 +66,7 @@ from genjax_tpu_torch.core.staging import to_shape_fn, zeros_on
 from genjax_tpu_torch.core.typing import batch_dims, depth_of, device_of, mark, plain
 from genjax_tpu_torch.distributions.distribution import Distribution, DistributionTrace, _drop
 from genjax_tpu_torch.lang.interop import TraceHandler, handler_context
+from genjax_tpu_torch.utils.profiling import annotate
 
 R = TypeVar("R")
 
@@ -698,6 +699,7 @@ class StaticGenerativeFunction(Generic[R], GenerativeFunction[R]):
             score = score.expand(batch_dims(n))
         return score, retval if marked or n is None else _recorded(retval)[0]
 
+    @annotate("gen.generate")
     def generate(
         self,
         rng: torch.Generator,

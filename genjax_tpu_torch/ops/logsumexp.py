@@ -28,11 +28,13 @@ package has no backward kernel to port: it differentiates XLA's
 
 import ctypes
 import functools
+import time
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from genjax_tpu_torch.ops import _build
+from genjax_tpu_torch.utils.profiling import annotate, record_setup, span
 
 _THREADS = 256  # kThreads in csrc/logsumexp.cu
 _VEC = 4  # kVec: 16-byte loads per thread per step
@@ -77,7 +79,11 @@ def logsumexp_ess_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 @functools.cache
 def _kernel():
-    fn = _build.load_library("logsumexp").genjax_logsumexp_f32
+    start = time.perf_counter_ns()
+    nvcc = not _build.library_path("logsumexp").exists()
+    with span("setup.k1_load"):
+        fn = _build.load_library("logsumexp").genjax_logsumexp_f32
+    record_setup("setup.k1_load", start, nvcc=nvcc)
     fn.argtypes = [
         ctypes.c_void_p,  # x
         ctypes.c_int64,  # n
@@ -177,6 +183,7 @@ def _recording(x: torch.Tensor) -> bool:
     return x.requires_grad and torch.is_grad_enabled()
 
 
+@annotate("k1.logsumexp")
 def fused_logsumexp(x: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on a contiguous 1-D CUDA tensor; a float32
     0-d tensor on the same device, without a host synchronisation. Other
@@ -189,6 +196,7 @@ def fused_logsumexp(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@annotate("k1.logsumexp_ess")
 def fused_logsumexp_ess(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """`(logsumexp(x), ess)` from one launch of the CUDA kernel, as two
     float32 0-d views of one 2-element tensor on `x`'s device, without a

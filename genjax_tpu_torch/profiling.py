@@ -3,7 +3,9 @@ VI, library, adaptive samplers' and last six algorithms' paths, on one
 CUDA card.
 
 Traces each configuration that `chip_smoke.py` runs with `torch.profiler`
-(CUPTI device intervals) and prints, for each:
+(CUPTI device intervals), but for the SIR trial at K=1M and the filter at
+K=1M, T=50, which the benchmark's traced cells profile (`benchmarks/`),
+and prints, for each:
 
 - wall: the median host-clock time of unprofiled runs, each between two
   device synchronisations;
@@ -12,8 +14,8 @@ Traces each configuration that `chip_smoke.py` runs with `torch.profiler`
 - idle share: `1 - busy / wall`;
 - peak memory: the most device memory the unprofiled runs took above what
   was allocated before them;
-- device items and host kernel-launch calls per step (per trial for SIR
-  and mixture SIR, per filter step for the filters, per leapfrog step for
+- device items and host kernel-launch calls per step (per trial for
+  mixture SIR, per filter step for the filters, per leapfrog step for
   HMC, per MALA sweep for polyreg, per scan step for the HMM unfold, per
   MH step, jump sweep or Gibbs sweep on the branching path, per filter
   step or `extend` on the SMC path, per round for the dense SMC round,
@@ -44,9 +46,6 @@ import torch
 
 WALL_RUNS = 5
 PROFILE_ATTEMPTS = 3
-SIR_PARTICLES = 1_000_000
-BIG_FILTER_PARTICLES = 1_000_000
-BIG_FILTER_STEPS = 50
 
 
 def busy_us(intervals) -> float:
@@ -343,26 +342,17 @@ def algorithm_configurations(rng: torch.Generator, dev: str = "cuda") -> list:
 
 
 def configurations():
-    """(label, steps, fn) of each configuration, on the card."""
+    """(label, steps, fn) of each configuration, on the card. The SIR trial
+    at K=1M and the filter at K=1M, T=50 are not among them: the
+    benchmark's traced cells (`benchmarks/`, `--trace 1`) profile those
+    paths, with the program's spans."""
     import genjax_tpu_torch as gx
     from genjax_tpu_torch.entry import N_PARTICLES, N_STEPS, entry
-    from genjax_tpu_torch.models.beta_bernoulli import beta_bernoulli
-    from genjax_tpu_torch.models.ssm import run_bootstrap_filter, simulate_ssm_data
-
-    rng = torch.Generator(device="cuda").manual_seed(0)
-    target = gx.Target(beta_bernoulli, (2.0, 2.0), gx.ChoiceMap.d({"v": True}))
-    alg = gx.ImportanceK(target, k_particles=SIR_PARTICLES)
-
-    def sir_trial():
-        col = alg.run_smc(rng)
-        return col.get_log_marginal_likelihood_estimate(), col.sample_particle(rng)
-
     from genjax_tpu_torch.inference.exact_testbed import build_hmm_chain_model
     from genjax_tpu_torch.models import hmm, logreg, polyreg
 
+    rng = torch.Generator(device="cuda").manual_seed(0)
     small_filter, _ = entry("cuda")
-    _, ys = simulate_ssm_data(torch.Generator().manual_seed(1), BIG_FILTER_STEPS)
-    ys = ys.to("cuda")
     hmc, pr = logreg.BenchConfig(), polyreg.BenchConfig()
     X, yl = hmc.data("cuda")
     xs, yp = pr.data("cuda")
@@ -381,13 +371,7 @@ def configurations():
     branching = chip_smoke.branching_configurations(gx, rng)
 
     return [
-        (f"SIR beta-bernoulli K={SIR_PARTICLES}, one trial (importance, LML, one draw)", 1, sir_trial),
         (f"filter K={N_PARTICLES} T={N_STEPS}", N_STEPS, lambda: small_filter(rng)),
-        (
-            f"filter K={BIG_FILTER_PARTICLES} T={BIG_FILTER_STEPS}",
-            BIG_FILTER_STEPS,
-            lambda: run_bootstrap_filter(rng, ys, n_particles=BIG_FILTER_PARTICLES),
-        ),
         (
             f"logreg HMC C={hmc.n_chains} N={hmc.n_data} D={hmc.dim} L={hmc.L} S={hmc.n_steps}, one run "
             "(chain init, S MH steps); steps are leapfrog steps",

@@ -1,12 +1,42 @@
-"""Profiling helpers: named spans, trace capture, device memory and
-operation counts.
+"""Profiling helpers: the program's spans, trace capture, device memory
+and operation counts.
 
 Counterpart of `genjax_tpu/utils/profiling.py`, on `torch.profiler`:
-`annotate` puts a function's calls in a labelled span
-(`torch.profiler.record_function`, JAX's `named_scope`), `profile_trace`
-captures a Chrome trace of the CPU and, where there is one, the CUDA
-device, `device_memory_stats` reads the CUDA allocator's counters, and
-`cost_summary` counts the work of one call of a function.
+
+- `span(name)` marks a block as a span of the program (JAX's
+  `named_scope`). It records only while a `torch.profiler` is running:
+  then the block is an event of the profiler's trace, on the same clock as
+  the device's intervals, and a `SpanRecord` in a bounded in-memory buffer
+  of the newest `SPAN_BUFFER` records (`spans()`, `reset_spans()`). With
+  no profiler running, it reads one flag and returns a shared no-op
+  context. `annotate(name)` is its decorator form.
+- `record_setup` keeps the duration of a set-up step that runs once per
+  process (importing the package, building or loading K1), whether or
+  not a profiler runs; `setup_spans()` reads them.
+- `profile_trace` captures a Chrome trace of the CPU and, where there is
+  one, the CUDA device; `device_memory_stats` reads the CUDA allocator's
+  counters, and `cost_summary` counts the work of one call of a function.
+
+The spans of the particle path, by module:
+
+- `inference/smc.py`: `smc.importance` (`ImportanceK.run_smc`), `smc.lml`
+  and `smc.sample_particle` (`ParticleCollection`'s
+  `get_log_marginal_likelihood_estimate` and `sample_particle`);
+- `inference/particle_filter.py::BootstrapFilter.run`: `filter.run`, then
+  per step after the first `filter.step`, holding `filter.gate` (the ESS
+  gate) with `filter.gate_read` inside it (the host's read of the gate's
+  comparison, a device synchronisation), and where the gate fires
+  `filter.resample` (the ancestors) and `filter.take_rows` (the row copy),
+  as the final resample does too;
+- `lang/static.py`: `gen.generate` (`StaticGenerativeFunction.generate`);
+- `distributions/distribution.py`: `dist.draw` and `dist.density`
+  (`Distribution._fresh`, a site's fresh draw, and `._density`, the
+  density of a value held to a constraint, as `generate` takes them);
+- `ops/logsumexp.py`: `k1.logsumexp` and `k1.logsumexp_ess`, the host's
+  enqueue of K1 (`fused_logsumexp`, `fused_logsumexp_ess`);
+- set-up, by `record_setup`: `setup.package_import`
+  (`genjax_tpu_torch/__init__.py`) and `setup.k1_load` (K1's build or
+  load, `ops/logsumexp.py::_kernel`).
 
 (The card's measurement script of the port is `genjax_tpu_torch/profiling.py`,
 a different module.)
@@ -14,18 +44,114 @@ a different module.)
 
 import contextlib
 import functools
+import itertools
 import os
 import tempfile
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass
 from typing import Callable
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+SPAN_BUFFER = 65536  # records kept: the newest
+
+
+@dataclass(slots=True)
+class SpanRecord:
+    """One span: its sequence number `seq`, `name`, the `seq` of the span it
+    ran inside (`parent`, None for a root), the `seq` of its root (`root`,
+    shared by every span under one root), and the host's
+    `time.perf_counter_ns()` at its start and end (`end_ns` is None while
+    it runs)."""
+
+    seq: int
+    name: str
+    parent: int | None
+    root: int
+    start_ns: int
+    end_ns: int | None = None
+
+
+_records: deque = deque(maxlen=SPAN_BUFFER)
+_seq = itertools.count()
+_open = threading.local()  # each thread's stack of open spans
+_setup: dict = {}
+
+
+# A span's event in the profiler's trace: a host event of the `FUNCTION`
+# scope, as an aten operation's. `torch.profiler.record_function` (the
+# `USER_SCOPE`) would also put a `gpu_user_annotation` interval on the
+# device's timeline over the kernels each span launches, which a reading of
+# the device's busy time or idle gaps would count as device work.
+_TraceEvent = torch._C._profiler._RecordFunctionFast
+
+
+class _Span:
+    __slots__ = ("name", "_event", "_record")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self._event = _TraceEvent(self.name)
+        self._event.__enter__()
+        seq = next(_seq)
+        parent, root = (stack[-1].seq, stack[-1].root) if stack else (None, seq)
+        rec = self._record = SpanRecord(seq, self.name, parent, root, time.perf_counter_ns())
+        stack.append(rec)
+        _records.append(rec)
+        return self
+
+    def __exit__(self, *exc):
+        self._record.end_ns = time.perf_counter_ns()
+        _open.stack.pop()
+        self._event.__exit__(*exc)
+        return False
+
+
+class _Off:
+    """A span while no profiler runs: nothing (`contextlib.nullcontext`,
+    less its stored result)."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
+
+
+_OFF = _Off()
+
+
+def span(name: str):
+    """A context manager: the block is a span named `name` while a
+    `torch.profiler` runs (an event in its trace and a record in
+    `spans()`); otherwise the shared no-op context, after one read of the
+    profiler's flag.
+
+    >>> from genjax_tpu_torch.utils.profiling import span, spans
+    >>> with span("outside"):
+    ...     pass
+    >>> [r.name for r in spans() if r.name == "outside"]
+    []
+    """
+    return _Span(name) if _autograd_profiler._is_profiler_enabled else _OFF
+
 
 def annotate(name: str) -> Callable:
-    """Decorator: each call of the function is a span named `name` in
-    profiler traces.
+    """Decorator: each call of the function is `span(name)`, recorded only
+    while a `torch.profiler` runs (with none running, a call costs one read
+    of the profiler's flag).
 
     >>> from genjax_tpu_torch.utils.profiling import annotate
     >>> annotate("double")(lambda x: x * 2)(2.0)
@@ -35,12 +161,38 @@ def annotate(name: str) -> Callable:
     def decorator(fn):
         @functools.wraps(fn)
         def wrapped(*args, **kwargs):
-            with torch.profiler.record_function(name):
+            if not _autograd_profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with _Span(name):
                 return fn(*args, **kwargs)
 
         return wrapped
 
     return decorator
+
+
+def spans() -> list:
+    """The buffer's `SpanRecord`s (the newest `SPAN_BUFFER`), in the order
+    the spans started."""
+    return list(_records)
+
+
+def reset_spans() -> None:
+    """Empty the span buffer."""
+    _records.clear()
+
+
+def record_setup(name: str, start_ns: int, **facts) -> None:
+    """Keep the set-up step `name` that started at `start_ns`
+    (`time.perf_counter_ns()`) and ends now, with `facts` about it."""
+    _setup[name] = {"seconds": (time.perf_counter_ns() - start_ns) / 1e9, **facts}
+
+
+def setup_spans() -> dict:
+    """The set-up steps of this process: name -> `{"seconds": ..., **facts}`
+    (`setup.package_import`; `setup.k1_load` with `nvcc`, whether K1 was
+    built by this process, once K1 has been loaded)."""
+    return {name: dict(facts) for name, facts in _setup.items()}
 
 
 @contextlib.contextmanager
