@@ -4,7 +4,9 @@ Builds the package's CUDA kernels from `genjax_tpu_torch/csrc/`, holds
 each entry point (`logsumexp`, `logsumexp_ess`) against its plain PyTorch
 version at the main path's sizes, aligned and not, on the special values,
 back to back and on two streams, and times both beside their bound and
-`torch.logsumexp`. Then it drives the particle path through the package's
+`torch.logsumexp`; and K2, the systematic resampler's kernel, against its
+plain twin at K = 4096, 1M and 4M, timed beside its bound and the twin.
+Then it drives the particle path through the package's
 own entry points: beta-bernoulli SIR at K=1,000,000 and the SSM bootstrap
 filter (the `entry()` sweep at K=4096, T=20, and K=1,000,000, T=50),
 checking that each filter step reduces its weights with one launch. Then
@@ -135,6 +137,7 @@ BIG_FILTER_RUNS = 3
 KERNEL_SIZES = (1, 127, 4_096, 8_192, 10_000, 65_541, 262_144, 1_000_000, 16_777_216)
 TIMED_SIZES = (4_096, 10_000, 1_000_000, 16_777_216)
 MAIN_PATH_N = 1_000_000  # the size of the kernels' line: SIR and the large filter
+K2_SIZES = (4_096, 1_048_576, 4_194_304)  # entry()'s filter, and the benchmark's at 4M
 TIMED_CALLS = 50
 BACK_TO_BACK_CALLS = 1000
 # The least time of a call: its bytes over the H100's HBM rate, or its
@@ -535,6 +538,89 @@ def phase_kernel_backward(ops, card: str) -> dict:
         del leaf, k1_out, lib_out, x
     ops.fused_logsumexp.launches = before  # timing launches: not on a main path
     return {"grad_max_abs_err": worst, **record}
+
+
+def k2_log_weights(kind: str, k: int, dev) -> torch.Tensor:
+    """Seeded log weights for K2: all equal ("flat"); 30 x normal, so that a
+    few hundred particles hold the mass ("peaked"); or normal with half of
+    them -inf, in runs of 5000 that cross the tiles' boundaries (every 4096
+    particles; "half_inf")."""
+    g = torch.Generator(device=dev).manual_seed(k + len(kind))
+    if kind == "flat":
+        return torch.zeros(k, device=dev)
+    if kind == "peaked":
+        return 30.0 * torch.randn(k, generator=g, device=dev)
+    zero = (torch.arange(k, device=dev) // 5000) % 2 == 1
+    return torch.where(zero, -torch.inf, torch.randn(k, generator=g, device=dev))
+
+
+def k2_against_twin(ops, u0: torch.Tensor, lw: torch.Tensor, n: int, lse) -> tuple[int, int]:
+    """K2's `n` ancestors against its plain twin's on the uniform `u0`:
+    every slot written (its memory held -1 before), each a particle of
+    positive weight, nondecreasing, and equal but at float64 ties, slots
+    where the twin's n * cdf - u0 of some particle lies within 1e-9 of an
+    integer. Returns (slots that differ, tie slots)."""
+    from genjax_tpu_torch.inference import smc
+
+    torch.full((n,), -1, dtype=torch.int64, device=lw.device)  # freed: K2's output may reuse it
+    got = ops.fused_systematic_ancestors(u0, lw, n, lse)
+    ref = smc.systematic_ancestors_plain(u0, lw, n, lse)
+    check(got.dtype == torch.int64 and got.shape == (n,) and got.device == lw.device, "K2: output's type or shape")
+    check(int(got.min()) >= 0 and int(got.max()) < lw.numel(), "K2: a slot out of range or not written")
+    check(bool((got[1:] >= got[:-1]).all()), "K2: ancestors decrease")
+    check(bool(torch.isfinite(lw[got]).all()), "K2: a particle of zero weight took a slot")
+    x = n * smc.normalized_cdf(lw, lse) - u0.double()
+    near = (x - x.round()).abs() < 1e-9
+    ties = torch.zeros(n, dtype=torch.bool, device=lw.device)
+    ties[x[near].round().long().clamp(0, n - 1)] = True
+    differ = got != ref
+    check(not bool((differ & ~ties).any()), f"K2: {int((differ & ~ties).sum())} slots differ from the twin off a tie")
+    return int(differ.sum()), int(ties.sum())
+
+
+def phase_k2(ops, card: str) -> dict:
+    """K2 against its plain twin at K = n = 4096, 1M and 4M on flat, peaked
+    and half -inf weights, with the log-sum-exp as K1's tensor, a float and
+    None; then its device time and host enqueue beside its bound and the
+    twin's, at the filter's call (lse a tensor). Returns its record for the
+    kernels' line (at 4M)."""
+    from genjax_tpu_torch.inference import smc
+    from genjax_tpu_torch.profiling import device_and_host
+
+    dev = torch.device("cuda")
+    rng = torch.Generator(device=dev).manual_seed(20)
+    for k in K2_SIZES:
+        for kind in ("flat", "peaked", "half_inf"):
+            lw = k2_log_weights(kind, k, dev)
+            lse = ops.logsumexp(lw)
+            found = [k2_against_twin(ops, torch.rand((), generator=rng, device=dev), lw, k, given)
+                     for given in (lse, float(lse), None)]
+            print(f"K2 == plain twin at K=n={k}, {kind} weights, lse as tensor, float and None: slots that "
+                  f"differ {[d for d, _ in found]}, all at tie slots {[t for _, t in found]} "
+                  f"(n * cdf - u0 within 1e-9 of an integer)")
+    records = {}
+    for k in K2_SIZES:
+        lw = k2_log_weights("peaked", k, dev) / 10.0
+        lse, u0 = ops.logsumexp(lw), torch.rand((), generator=rng, device=dev)
+        timed = {"K2": lambda v: ops.fused_systematic_ancestors(u0, v, k, lse),
+                 "plain twin": lambda v: smc.systematic_ancestors_plain(u0, v, k, lse)}
+        device, host = {name: [] for name in timed}, {name: [] for name in timed}
+        for fn in timed.values():
+            device_and_host(fn, lw, 5)  # warm up
+        for name in [*timed, *reversed(timed)]:
+            d, h = device_and_host(timed[name], lw, TIMED_CALLS // 2)
+            device[name].append(d)
+            host[name].append(h)
+        ms = {name: statistics.fmean(v) for name, v in device.items()}
+        us = {name: statistics.fmean(v) for name, v in host.items()}
+        b_ms = 1e3 * (4 * k + 8 * k) / HBM_BYTES_PER_S
+        records[k] = {"ms": ms["K2"], "plain_ms": ms["plain twin"], "bound_ms": b_ms, "bound_by": "bytes",
+                      "library_ms": None, "host_us": us["K2"]}
+        print(f"[{card}] K2 K=n={k}: device {ms['K2']:.4f} ms per call ({TIMED_CALLS} calls behind a sleep "
+              f"kernel, CUDA events; the weights warm in L2), bound {b_ms:.4g} ms (4K + 8n bytes), "
+              f"{100 * b_ms / ms['K2']:.1f}% of bound; plain twin {ms['plain twin']:.4f} ms; host enqueue "
+              f"{us['K2']:.2f} us per call (plain twin {us['plain twin']:.2f})")
+    return records[K2_SIZES[-1]]
 
 
 def phase_sir(gx, ops, card: str) -> None:
@@ -3932,18 +4018,21 @@ def main() -> None:
 
     kernels = phase_kernel(ops, card)
     backward = phase_kernel_backward(ops, card)
+    k2 = phase_k2(ops, card)
 
     # The main paths, each with every launch count set to 0 just before it
     # and read just after.
     # And the edit plan's record of each path: analyses, cache hits, and
     # the edits that fell back to the dense plan, by reason.
     plans = []
+    k2_launches = []
 
     def drive(phase) -> dict:
-        ops.fused_logsumexp.launches = ops.fused_logsumexp_ess.launches = 0
+        ops.fused_logsumexp.launches = ops.fused_logsumexp_ess.launches = ops.fused_systematic_ancestors.launches = 0
         before = analysis.stats()
         phase()
         after = analysis.stats()
+        k2_launches.append(ops.fused_systematic_ancestors.launches)
         plans.append({
             "analyses": after["analyses"] - before["analyses"], "hits": after["hits"] - before["hits"],
             "fallbacks": {r: n - before["fallbacks"].get(r, 0) for r, n in after["fallbacks"].items()
@@ -3992,6 +4081,9 @@ def main() -> None:
     print("kernel launches on the main paths: " + ", ".join(
         f"{name} {count} (" + ", ".join(f"{path} path {p[name]}" for path, p in paths.items()) + ")"
         for name, count in launches.items()))
+    check(k2_launches[0] > 0, "the particle path (the filters) launched no K2")
+    print(f"K2 launches on the main paths: {sum(k2_launches)} ("
+          + ", ".join(f"{path} path {n}" for path, n in zip(paths, k2_launches)) + ")")
     print("the edit plan on the main paths: " + "; ".join(f"{path} path {p}" for path, p in zip(paths, plans)))
     print(f"[{card}] smoke total wall: {time.perf_counter() - t_smoke:.1f} s")
 
@@ -4003,7 +4095,14 @@ def main() -> None:
         "launches": launches[name],
         **record,
         **(backward if name == "logsumexp" else {}),
-    } for name, record in kernels.items()]}))
+    } for name, record in kernels.items()] + [{
+        "name": "systematic_ancestors",
+        "route": "cuda",
+        "source": "genjax_tpu_torch/csrc/resample.cu",
+        "replaces": "genjax_tpu/inference/smc.py::systematic_cum_counts, genjax_tpu/ops/expand.py::expand_cols",
+        "launches": sum(k2_launches),
+        **k2,
+    }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -22,7 +22,9 @@ and a deterministic part that maps given uniforms to ancestors
 (`systematic_cum_counts`, `multinomial_ancestors`, `stratified_ancestors`,
 `residual_ancestors`). The ancestors of sorted queries come from
 `torch.searchsorted`: JAX's merge sort is a TPU workaround, not the
-algorithm.
+algorithm. On a CUDA device, `systematic_resample` maps its uniform to
+ancestors with one call of the kernel K2 (`ops/resample.py`) in place of
+its plain twin `systematic_ancestors_plain`.
 """
 
 import math
@@ -39,7 +41,7 @@ from genjax_tpu_torch.core.mask import Mask
 from genjax_tpu_torch.core.pytree import Pytree
 from genjax_tpu_torch.core.typing import FloatArray
 from genjax_tpu_torch.inference.sp import Algorithm, SampleDistribution, Target, stack_runs
-from genjax_tpu_torch.ops import logsumexp, logsumexp_ess
+from genjax_tpu_torch.ops import fused_systematic_ancestors, logsumexp, logsumexp_ess
 from genjax_tpu_torch.utils.profiling import annotate
 
 R = TypeVar("R")
@@ -121,13 +123,31 @@ def cum_counts_to_ancestors(cum: torch.Tensor, n: int) -> torch.Tensor:
     return torch.searchsorted(cum, torch.minimum(slots, cum[..., -1:] - 1), right=True)
 
 
+def systematic_ancestors_plain(
+    u0: FloatArray, log_weights: torch.Tensor, n: int, lse: FloatArray | None = None
+) -> torch.Tensor:
+    """The `n` ancestors of systematic resampling with the uniform `u0`:
+    `systematic_cum_counts`, then `cum_counts_to_ancestors`. The plain twin
+    of K2 (`ops.fused_systematic_ancestors`)."""
+    return cum_counts_to_ancestors(systematic_cum_counts(u0, log_weights, n, lse), n)
+
+
 def systematic_resample(
     rng: torch.Generator, log_weights: torch.Tensor, n: int, lse: FloatArray | None = None
 ) -> torch.Tensor:
     """Systematic (low-variance) resampling: `n` ancestor indices. `lse`
-    as in `normalized_cdf`."""
+    as in `normalized_cdf`. One uniform from `rng`, then the plain twin for
+    CPU log weights, K2 for log weights on a CUDA device."""
+    systematic_resample.calls += 1
     u0 = torch.rand((), generator=rng, device=rng.device)
-    return cum_counts_to_ancestors(systematic_cum_counts(u0, log_weights, n, lse), n)
+    if log_weights.device.type == "cpu":
+        return systematic_ancestors_plain(u0, log_weights, n, lse)
+    return fused_systematic_ancestors(u0, log_weights, n, lse)
+
+
+# Calls since the count was last set to 0 (K2's `launches` counts those on
+# the card).
+systematic_resample.calls = 0
 
 
 def sorted_queries_ancestors(cdf: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
@@ -579,6 +599,7 @@ __all__ = [
     "sorted_uniforms",
     "stratified_ancestors",
     "stratified_resample",
+    "systematic_ancestors_plain",
     "systematic_cum_counts",
     "systematic_resample",
 ]

@@ -10,10 +10,12 @@ from genjax_tpu_torch.ops.logsumexp import (
     logsumexp_ess_plain,
     logsumexp_plain,
 )
+from genjax_tpu_torch.ops.resample import fused_systematic_ancestors
 
 __all__ = [
     "fused_logsumexp",
     "fused_logsumexp_ess",
+    "fused_systematic_ancestors",
     "launch_geometry",
     "logsumexp",
     "logsumexp_ess",

@@ -35,8 +35,10 @@ The spans of the particle path, by module:
 - `ops/logsumexp.py`: `k1.logsumexp` and `k1.logsumexp_ess`, the host's
   enqueue of K1 (`fused_logsumexp`, `fused_logsumexp_ess`);
 - set-up, by `record_setup`: `setup.package_import`
-  (`genjax_tpu_torch/__init__.py`) and `setup.k1_load` (K1's build or
-  load, `ops/logsumexp.py::_kernel`).
+  (`genjax_tpu_torch/__init__.py`), `setup.k1_load` (K1's build or load,
+  `ops/logsumexp.py::_kernel`) and `setup.k2_load` (K2's,
+  `ops/resample.py::_library`, at the first systematic resample on the
+  card).
 
 (The card's measurement script of the port is `genjax_tpu_torch/profiling.py`,
 a different module.)

@@ -17,7 +17,9 @@ to the dense fallback plan's on the same generator state; and the parallel
 layer on a one-rank group: the sharded reductions, the collectives'
 record, the warmups over the chain axis against the stitched dense ones
 (and their synchronisations), and data-sharded logistic regression
-against the dense model.
+against the dense model. And K2, the systematic resampler's kernel,
+against its plain twin at 4096, 1M and 4M particles, and through the
+filter.
 
 These tests need a CUDA device (the kernel has no CPU mode) and skip
 without one. On a machine with the card and without JAX, run them with
@@ -32,6 +34,7 @@ import torch
 from genjax_tpu_torch.ops import (
     fused_logsumexp,
     fused_logsumexp_ess,
+    fused_systematic_ancestors,
     logsumexp,
     logsumexp_ess,
     logsumexp_ess_plain,
@@ -1057,16 +1060,88 @@ def test_rbpf_one_sync_per_step_and_the_linear_case_exact_on_the_card(cuda):
 def test_systematic_resampling_never_picks_a_zero_weight_particle_at_a_million(cuda):
     # Half the weights -inf, as ABC-SMC's survivors: the card's parallel
     # cumsum must not hand any of them a slot or a query, in any of the
-    # resamplers (the float64 prefix sum of `smc.prefix_cdf`).
+    # resamplers (the float64 prefix sum of `smc.prefix_cdf`; for the
+    # systematic resampler, K2's rule that a zero weight owns no slot).
     from genjax_tpu_torch.inference.smc import RESAMPLERS
 
     rng = torch.Generator(device=cuda).manual_seed(6)
     for name, resample in sorted(RESAMPLERS.items()):
+        before = fused_systematic_ancestors.launches
         for _ in range(10):
             d = torch.rand(1_000_000, generator=rng, device=cuda)
             lw = torch.where(d <= torch.quantile(d, 0.5), 0.0, -torch.inf)
             anc = resample(rng, lw, 1_000_000)
             assert bool(torch.isfinite(lw[anc]).all()), name
+        assert fused_systematic_ancestors.launches - before == (10 if name == "systematic" else 0), name
+
+
+K2_SIZES = [4_096, 1_048_576, 4_194_304]
+
+
+@pytest.mark.parametrize("k", K2_SIZES)
+@pytest.mark.parametrize("kind", ["flat", "peaked", "half_inf"])
+def test_k2_matches_its_plain_twin_but_at_float64_ties(cuda, kind, k):
+    # Seeded flat, peaked and half -inf weights (`chip_smoke.k2_log_weights`),
+    # with lse as K1's 0-d tensor, as a float and as None (K1 first); n = K
+    # and, at the smallest size, other slot counts. Every slot written,
+    # nondecreasing, no zero weight picked, and equal to the twin's but at
+    # float64 ties (`chip_smoke.k2_against_twin`, which counts them).
+    import chip_smoke
+    from genjax_tpu_torch import ops
+
+    lw = chip_smoke.k2_log_weights(kind, k, cuda)
+    rng = torch.Generator(device=cuda).manual_seed(k)
+    lse = logsumexp(lw)
+    for given in (lse, float(lse), None):
+        for n in [k] + ([1, 1000, 3 * k + 5] if k == K2_SIZES[0] else []):
+            u0 = torch.rand((), generator=rng, device=cuda)
+            before = fused_systematic_ancestors.launches
+            mismatched, ties = chip_smoke.k2_against_twin(ops, u0, lw, n, given)
+            assert fused_systematic_ancestors.launches == before + 1
+            print(f"K2 {kind} K={k} n={n} lse {type(given).__name__}: {mismatched} slots differ, {ties} tie slots")
+
+
+def test_k2_on_the_extremes_of_its_input(cuda):
+    # A uniform of 0; one particle owning every slot; every weight zero
+    # (every slot takes particle 0, as the twin gives); an unaligned and a
+    # ragged vector; K2's plain twin on the same input each time.
+    import chip_smoke
+    from genjax_tpu_torch import ops
+    from genjax_tpu_torch.inference import smc
+
+    k = 3 * 4096 + 17
+    lw = torch.randn(k + 1, device=cuda)
+    zero = torch.zeros((), device=cuda)
+    chip_smoke.k2_against_twin(ops, zero, lw[:k], k, None)
+    chip_smoke.k2_against_twin(ops, torch.tensor(0.5, device=cuda), lw[1:], 4_000_000, None)  # unaligned, n past K
+    heavy = torch.full((k,), -200.0, device=cuda)
+    heavy[k // 2] = 0.0
+    assert bool((fused_systematic_ancestors(torch.tensor(0.3, device=cuda), heavy, 100_000) == k // 2).all())
+    none = torch.full((k,), -torch.inf, device=cuda)
+    got = fused_systematic_ancestors(torch.tensor(0.3, device=cuda), none, k, 0.0)
+    twin = smc.systematic_ancestors_plain(torch.tensor(0.3, device=cuda), none, k, 0.0)
+    assert bool((got == 0).all()) and bool((twin == 0).all())
+
+
+def test_systematic_resample_launches_k2_and_the_filter_syncs_once_a_step(cuda):
+    # The SSM bootstrap filter at K=65,536, T=20: one synchronisation a
+    # step (the gate), K2 launched once a firing and once at the end, every
+    # systematic_resample call on the card through K2.
+    from genjax_tpu_torch.inference import particle_filter, smc
+    from genjax_tpu_torch.models.ssm import make_ssm_models, simulate_ssm_data
+
+    init_model, step_model = make_ssm_models()
+    pf = particle_filter.BootstrapFilter(step_model, init_model, 65_536, obs_addr="y")
+    ys = simulate_ssm_data(torch.Generator().manual_seed(1), 20)[1].to(cuda)
+    rng = torch.Generator(device=cuda).manual_seed(3)
+    pf.run(rng, ys)
+    launches, calls = fused_systematic_ancestors.launches, smc.systematic_resample.calls
+    fired = particle_filter.filter_stats["resamples"]
+    syncs, (lml, z) = _count_syncs(lambda: pf.run(rng, ys))
+    fired = particle_filter.filter_stats["resamples"] - fired
+    assert syncs == 19 and 0 < fired < 19
+    assert fused_systematic_ancestors.launches - launches == smc.systematic_resample.calls - calls == fired + 1
+    assert _on_card((lml, z), cuda) and math.isfinite(float(lml))
 
 
 def test_abc_smc_launches_k1_once_per_generation_and_never_syncs(cuda):

@@ -1,5 +1,6 @@
 """The port's particle utilities (`genjax_tpu_torch.inference.smc`,
-`core.gather`) against `genjax_tpu`: systematic cumulative counts, the
+`core.gather`) against `genjax_tpu`: systematic cumulative counts (and
+`systematic_resample` on the CPU as their plain composition), the
 resampling row copy, and the LML and ESS of a `ParticleCollection`.
 Inputs are made with numpy; JAX's uniform draw `u0` is handed to the port.
 """
@@ -20,10 +21,12 @@ from genjax_tpu_torch.core.typing import per_particle
 from genjax_tpu_torch.inference.smc import (
     ParticleCollection,
     cum_counts_to_ancestors,
+    systematic_ancestors_plain,
     systematic_cum_counts,
     systematic_resample,
 )
 from genjax_tpu_torch.models.beta_bernoulli import beta_bernoulli
+from genjax_tpu_torch.ops import fused_systematic_ancestors
 
 torch.set_num_threads(1)
 
@@ -61,6 +64,24 @@ def test_systematic_cum_counts_match_jax(seed, spread, n, given_lse):
     assert (np.abs(got[mismatch].astype(np.int64) - ref[mismatch]) == 1).all()
     assert (np.abs(exact[mismatch] - np.round(exact[mismatch])) < 0.01).all()
     assert mismatch.size <= 2 * K // 1000
+
+
+@pytest.mark.parametrize("given_lse", [False, True], ids=["lse_computed", "lse_given"])
+@pytest.mark.parametrize("seed,spread,n", [(0, 1.0, K), (1, 3.0, K), (2, 8.0, K), (3, 3.0, 5000)])
+def test_systematic_resample_on_the_cpu_is_the_plain_twin(seed, spread, n, given_lse):
+    # On CPU log weights `systematic_resample` draws its uniform and maps it
+    # with the plain twin, bit for bit the composition of the counts and
+    # their ancestors; K2 (the CUDA kernel) is not launched, and the call
+    # is counted.
+    lw = torch.from_numpy(_log_weights(seed, spread))
+    lse = torch.logsumexp(lw, 0) if given_lse else None
+    launches, calls = fused_systematic_ancestors.launches, systematic_resample.calls
+    got = systematic_resample(torch.Generator().manual_seed(seed), lw, n, lse)
+    u0 = torch.rand((), generator=torch.Generator().manual_seed(seed))
+    assert torch.equal(got, cum_counts_to_ancestors(systematic_cum_counts(u0, lw, n, lse), n))
+    assert torch.equal(got, systematic_ancestors_plain(u0, lw, n, lse))
+    assert fused_systematic_ancestors.launches == launches
+    assert systematic_resample.calls == calls + 1
 
 
 def test_systematic_counts_give_each_particle_floor_or_ceil_of_its_share():
