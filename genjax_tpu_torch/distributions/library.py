@@ -307,6 +307,18 @@ geometric = Geometric()
 # -- categorical -----------------------------------------------------------
 
 
+# `categorical`'s counters over every call in the process: the rows it
+# `drawn` and `scored`, and the logits `entries` those rows span (rows
+# times categories, a row shared by broadcasting counted for each value).
+# Read from shapes on the host: no device read, no allocation.
+categorical_stats = {"drawn": 0, "scored": 0, "entries": 0}
+
+
+def _count(kind: str, rows: int, n_cat: int) -> None:
+    categorical_stats[kind] += rows
+    categorical_stats["entries"] += rows * n_cat
+
+
 @Pytree.dataclass
 class Categorical(ExactDensity):
     """Categorical over `0..n-1` (int64 draws), parameterized by `logits=`
@@ -330,8 +342,10 @@ class Categorical(ExactDensity):
     def sample(self, rng, logits=None, probs=None, n=None):
         if logits is None:
             logits = log(probs)
+        shape = sample_shape(n, logits)
+        _count("drawn", shape[:-1].numel(), shape[-1])
         # argmax(logits + Gumbel), the Gumbel noise as -log of an Exp(1) draw.
-        e = torch.empty(sample_shape(n, logits), device=rng.device).exponential_(generator=rng)
+        e = torch.empty(shape, device=rng.device).exponential_(generator=rng)
         return torch.argmax(logits - torch.log(e), dim=-1)
 
     def logpdf(self, v, logits=None, probs=None):
@@ -347,10 +361,12 @@ class Categorical(ExactDensity):
         in_support = (v >= 0) & (v < n_cat)
         vs = torch.where(in_support, v, 0)
         if logits.dim() == 1:
+            lead = vs.shape
             picked = logits[vs]
         else:
             lead = torch.broadcast_shapes(vs.shape, logits.shape[:-1])
             picked = torch.gather(logits.expand(*lead, n_cat), -1, vs.expand(lead).unsqueeze(-1)).squeeze(-1)
+        _count("scored", lead.numel(), n_cat)
         # log_softmax(logits)[v], without the normalized table.
         return torch.where(in_support, picked - torch.logsumexp(logits, dim=-1), -math.inf)
 

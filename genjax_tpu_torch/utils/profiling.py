@@ -40,6 +40,15 @@ The spans of the particle path, by module:
   `ops/resample.py::_library`, at the first systematic resample on the
   card).
 
+The particle path's counters, kept always (plain dicts and attributes,
+counted from shapes on the host): `inference/particle_filter.py`'s
+`filter_stats` (the steps after each filter's first, and the gate's
+resamples); `distributions/library.py`'s `categorical_stats` (the rows
+`categorical` drew and scored, and the logits `entries` those rows span);
+`inference/smc.py`'s `systematic_resample.calls` and the kernels'
+`launches` (`ops.fused_logsumexp`, `ops.fused_logsumexp_ess`,
+`ops.fused_systematic_ancestors`).
+
 (The card's measurement script of the port is `genjax_tpu_torch/profiling.py`,
 a different module.)
 """
