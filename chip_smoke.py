@@ -5,7 +5,10 @@ each entry point (`logsumexp`, `logsumexp_ess`) against its plain PyTorch
 version at the main path's sizes, aligned and not, on the special values,
 back to back and on two streams, and times both beside their bound and
 `torch.logsumexp`; and K2, the systematic resampler's kernel, against its
-plain twin at K = 4096, 1M and 4M, timed beside its bound and the twin.
+plain twin at K = 4096, 1M and 4M, timed beside its bound and the twin;
+and K4, the categorical's draw and score, against its plain twins at
+4096, 2^20 and 2^22 rows of 64, timed beside its bound, the twins and the
+eager path it replaces.
 Then it drives the particle path through the package's
 own entry points: beta-bernoulli SIR at K=1,000,000 and the SSM bootstrap
 filter (the `entry()` sweep at K=4096, T=20, and K=1,000,000, T=50),
@@ -138,6 +141,8 @@ KERNEL_SIZES = (1, 127, 4_096, 8_192, 10_000, 65_541, 262_144, 1_000_000, 16_777
 TIMED_SIZES = (4_096, 10_000, 1_000_000, 16_777_216)
 MAIN_PATH_N = 1_000_000  # the size of the kernels' line: SIR and the large filter
 K2_SIZES = (4_096, 1_048_576, 4_194_304)  # entry()'s filter, and the benchmark's at 4M
+K4_SIZES = (4_096, 1_048_576, 4_194_304)  # rows: entry()'s K, the HMM cell's, 4x it
+K4_CATEGORIES = 64  # the HMM's states
 TIMED_CALLS = 50
 BACK_TO_BACK_CALLS = 1000
 # The least time of a call: its bytes over the H100's HBM rate, or its
@@ -621,6 +626,106 @@ def phase_k2(ops, card: str) -> dict:
               f"{100 * b_ms / ms['K2']:.1f}% of bound; plain twin {ms['plain twin']:.4f} ms; host enqueue "
               f"{us['K2']:.2f} us per call (plain twin {us['plain twin']:.2f})")
     return records[K2_SIZES[-1]]
+
+
+def k4_rows(k: int, dev) -> torch.Tensor:
+    """Seeded (k, 64) logits for K4: 3 x normal, every 5th row with columns
+    -inf in runs of 7 that cross the lanes' pairs."""
+    g = torch.Generator(device=dev).manual_seed(k + 4)
+    x = 3.0 * torch.randn(k, K4_CATEGORIES, generator=g, device=dev)
+    dead = (torch.arange(K4_CATEGORIES, device=dev) // 7) % 3 == 1
+    x[::5] = torch.where(dead, -torch.inf, x[::5])
+    return x
+
+
+def phase_k4(card: str) -> dict:
+    """K4's draw against its plain twin slot for slot, on the same
+    uniforms, and its score against the twin value for value, at K = 4096,
+    2^20 and 2^22 rows of 64 (distinct rows and one shared row; per-row and
+    shared values); then each entry point's device time and host enqueue
+    beside its bound, the twin's, one library call's (the score as
+    `-F.cross_entropy`, the draw as `torch.multinomial` of the softmax)
+    and the eager path's that it replaces (`Categorical`'s Gumbel-max draw
+    and log-softmax score), on distinct rows. Returns its record for the
+    kernels' line (at 2^20, the HMM cell's K)."""
+    import torch.nn.functional as F
+
+    from genjax_tpu_torch.ops import categorical as k4
+    from genjax_tpu_torch.profiling import device_and_host
+
+    dev = torch.device("cuda")
+    rng = torch.Generator(device=dev).manual_seed(22)
+    for k in K4_SIZES:
+        x = k4_rows(k, dev)
+        u = torch.rand(k, generator=rng, device=dev)
+        values = torch.randint(-1, K4_CATEGORIES + 1, (k,), generator=rng, device=dev)
+        shared_value = torch.tensor(K4_CATEGORIES // 2, device=dev).expand(k)
+        for label, rows in (("distinct rows", x), ("one shared row", x[1].expand(k, K4_CATEGORIES))):
+            got = k4.k4_draw(rows, u)
+            ref = k4.categorical_draw_plain(rows, u)
+            check(bool(torch.isfinite(rows.gather(1, got[:, None])).all()), f"K4 drew a column of zero mass ({label})")
+            differ = int((got != ref).sum())
+            check(differ <= 1e-4 * k, f"K4's draw: {differ} of {k} slots differ from the twin ({label})")
+            worst = 0.0
+            for v in (values, shared_value):
+                s, r = k4.k4_score(rows, v), k4.categorical_score_plain(rows, v)
+                special = ~torch.isfinite(r)
+                check(torch.equal(special, ~torch.isfinite(s)) and torch.equal(s[special], r[special]),
+                      f"K4's score: special values differ from the twin ({label})")
+                rel = (s - r).abs()[~special] / r.abs()[~special].clamp(min=1.0)
+                err = float(rel.max()) if rel.numel() else 0.0
+                check(err <= 1e-6, f"K4's score: {err:.3e} from the twin ({label})")
+                worst = max(worst, err)
+            print(f"K4 == plain twin at K={k}, C={K4_CATEGORIES}, {label}: draw slots that differ {differ}; "
+                  f"score max |err| / max(1, |ref|) {worst:.3e} (per-row and shared values)")
+
+    def eager_draw(x):
+        e = torch.empty(x.shape, device=x.device).exponential_(generator=rng)
+        return torch.argmax(x - torch.log(e), dim=-1)
+
+    def eager_score(x, v):
+        in_support = (v >= 0) & (v < x.shape[-1])
+        picked = torch.gather(x, -1, torch.where(in_support, v, 0).unsqueeze(-1)).squeeze(-1)
+        return torch.where(in_support, picked - torch.logsumexp(x, dim=-1), -math.inf)
+
+    records = {}
+    for k in K4_SIZES:
+        x = k4_rows(k, dev)
+        u = torch.rand(k, generator=rng, device=dev)
+        v = torch.randint(0, K4_CATEGORIES, (k,), generator=rng, device=dev)
+        timed = {
+            "K4 draw": lambda r: k4.k4_draw(r, u),
+            "twin draw": lambda r: k4.categorical_draw_plain(r, u),
+            "eager draw": eager_draw,
+            "library draw": lambda r: torch.multinomial(torch.softmax(r, -1), 1, generator=rng),
+            "K4 score": lambda r: k4.k4_score(r, v),
+            "twin score": lambda r: k4.categorical_score_plain(r, v),
+            "eager score": lambda r: eager_score(r, v),
+            "library score": lambda r: -F.cross_entropy(r, v, reduction="none"),
+        }
+        device, host = {name: [] for name in timed}, {name: [] for name in timed}
+        for fn in timed.values():
+            device_and_host(fn, x, 5)  # warm up
+        for name in [*timed, *reversed(timed)]:
+            d, h = device_and_host(timed[name], x, TIMED_CALLS // 2)
+            device[name].append(d)
+            host[name].append(h)
+        ms = {name: statistics.fmean(t) for name, t in device.items()}
+        us = {name: statistics.fmean(t) for name, t in host.items()}
+        for entry in ("draw", "score"):
+            # The rows once, then a uniform in and an int64 out, or an int64 in and a float32 out.
+            b_ms = 1e3 * k * (4 * K4_CATEGORIES + 12) / HBM_BYTES_PER_S
+            name = f"K4 {entry}"
+            records.setdefault(entry, {})[k] = {
+                "ms": ms[name], "plain_ms": ms[f"twin {entry}"], "bound_ms": b_ms, "bound_by": "bytes",
+                "library_ms": ms[f"library {entry}"], "eager_ms": ms[f"eager {entry}"], "host_us": us[name]}
+            print(f"[{card}] K4 {entry} K={k}, C={K4_CATEGORIES}: device {ms[name]:.4f} ms per call ({TIMED_CALLS} "
+                  f"calls behind a sleep kernel, CUDA events), bound {b_ms:.4g} ms (4C + 12 bytes a row), "
+                  f"{100 * b_ms / ms[name]:.1f}% of bound; plain twin {ms[f'twin {entry}']:.4f} ms; library "
+                  f"{ms[f'library {entry}']:.4f} ms; the eager path it replaces {ms[f'eager {entry}']:.4f} ms; host "
+                  f"enqueue {us[name]:.2f} us per call (library {us[f'library {entry}']:.2f}, eager "
+                  f"{us[f'eager {entry}']:.2f})")
+    return {entry: r[K4_SIZES[1]] for entry, r in records.items()}
 
 
 def phase_sir(gx, ops, card: str) -> None:
@@ -4005,6 +4110,7 @@ def main() -> None:
     from genjax_tpu_torch import ops
     from genjax_tpu_torch.lang import analysis
     from genjax_tpu_torch.ops import _build
+    from genjax_tpu_torch.ops import categorical as k4_ops
 
     t_smoke = time.perf_counter()
     card = card_line()
@@ -4019,6 +4125,7 @@ def main() -> None:
     kernels = phase_kernel(ops, card)
     backward = phase_kernel_backward(ops, card)
     k2 = phase_k2(ops, card)
+    k4 = phase_k4(card)
 
     # The main paths, each with every launch count set to 0 just before it
     # and read just after.
@@ -4026,13 +4133,16 @@ def main() -> None:
     # the edits that fell back to the dense plan, by reason.
     plans = []
     k2_launches = []
+    k4_launches = []
 
     def drive(phase) -> dict:
         ops.fused_logsumexp.launches = ops.fused_logsumexp_ess.launches = ops.fused_systematic_ancestors.launches = 0
+        k4_ops.k4_draw.launches = k4_ops.k4_score.launches = 0
         before = analysis.stats()
         phase()
         after = analysis.stats()
         k2_launches.append(ops.fused_systematic_ancestors.launches)
+        k4_launches.append((k4_ops.k4_draw.launches, k4_ops.k4_score.launches))
         plans.append({
             "analyses": after["analyses"] - before["analyses"], "hits": after["hits"] - before["hits"],
             "fallbacks": {r: n - before["fallbacks"].get(r, 0) for r, n in after["fallbacks"].items()
@@ -4084,6 +4194,9 @@ def main() -> None:
     check(k2_launches[0] > 0, "the particle path (the filters) launched no K2")
     print(f"K2 launches on the main paths: {sum(k2_launches)} ("
           + ", ".join(f"{path} path {n}" for path, n in zip(paths, k2_launches)) + ")")
+    check(sum(d + s for d, s in k4_launches) > 0, "no path launched K4")
+    print("K4 launches (draw, score) on the main paths: "
+          + ", ".join(f"{path} path {n}" for path, n in zip(paths, k4_launches)))
     print("the edit plan on the main paths: " + "; ".join(f"{path} path {p}" for path, p in zip(paths, plans)))
     print(f"[{card}] smoke total wall: {time.perf_counter() - t_smoke:.1f} s")
 
@@ -4102,7 +4215,14 @@ def main() -> None:
         "replaces": "genjax_tpu/inference/smc.py::systematic_cum_counts, genjax_tpu/ops/expand.py::expand_cols",
         "launches": sum(k2_launches),
         **k2,
-    }]}))
+    }] + [{
+        "name": f"categorical_{entry}",
+        "route": "cuda",
+        "source": "genjax_tpu_torch/csrc/categorical.cu",
+        "replaces": "none (genjax_tpu/distributions/library.py::_categorical_sample, _categorical_logpdf: XLA)",
+        "launches": sum(n[i] for n in k4_launches),
+        **k4[entry],
+    } for i, entry in enumerate(("draw", "score"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -49,6 +49,7 @@ from genjax_tpu_torch.distributions.mathx import (
     xlog1py,
     xlogy,
 )
+from genjax_tpu_torch.ops import categorical as k4
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -309,22 +310,44 @@ geometric = Geometric()
 
 # `categorical`'s counters over every call in the process: the rows it
 # `drawn` and `scored`, and the logits `entries` those rows span (rows
-# times categories, a row shared by broadcasting counted for each value).
+# times categories, a row shared by broadcasting counted for each value),
+# and of those rows the `k4_rows` that K4 drew or scored.
 # Read from shapes on the host: no device read, no allocation.
-categorical_stats = {"drawn": 0, "scored": 0, "entries": 0}
+categorical_stats = {"drawn": 0, "scored": 0, "entries": 0, "k4_rows": 0}
 
 
-def _count(kind: str, rows: int, n_cat: int) -> None:
+def _count(kind: str, rows: int, n_cat: int, by_k4: bool = False) -> None:
     categorical_stats[kind] += rows
     categorical_stats["entries"] += rows * n_cat
+    if by_k4:
+        categorical_stats["k4_rows"] += rows
+
+
+def _broadcast(a: torch.Size, b: torch.Size) -> torch.Size:
+    """The broadcast of two shapes, in plain Python: `torch.broadcast_shapes`
+    imports `sympy` at its first call (seconds)."""
+    if a == b:
+        return a
+    n = max(len(a), len(b))
+    a, b = (1,) * (n - len(a)) + tuple(a), (1,) * (n - len(b)) + tuple(b)
+    if any(x != y and x != 1 and y != 1 for x, y in zip(a, b)):
+        raise RuntimeError(f"shapes {a} and {b} do not broadcast")
+    return torch.Size(x if y == 1 else y for x, y in zip(a, b))
 
 
 @Pytree.dataclass
 class Categorical(ExactDensity):
     """Categorical over `0..n-1` (int64 draws), parameterized by `logits=`
     (unnormalized) or `probs=` along the last axis; a bare positional
-    parameter is logits. One Gumbel-argmax draw per row of logits; a value
-    outside `0..n-1` scores `-inf` (an index would otherwise wrap).
+    parameter is logits. A value outside `0..n-1` scores `-inf` (an index
+    would otherwise wrap).
+
+    Where K4 takes the logits (`ops/categorical.py::takes`: on the card,
+    float32, 2 to 64 categories on a contiguous last axis, no gradient
+    recorded), a draw is one uniform a row and one launch of K4's
+    inverse-CDF draw, and a score one launch. The CPU, float64, wider rows
+    and recorded gradients (K4 has no backward) keep the eager code: a
+    Gumbel-argmax draw per row and a log-softmax score.
 
     >>> import torch
     >>> from genjax_tpu_torch.distributions.library import categorical
@@ -343,7 +366,13 @@ class Categorical(ExactDensity):
         if logits is None:
             logits = log(probs)
         shape = sample_shape(n, logits)
-        _count("drawn", shape[:-1].numel(), shape[-1])
+        n_cat = shape[-1]
+        if k4.takes(logits):
+            rows = logits.expand(shape).reshape(-1, n_cat)
+            _count("drawn", rows.shape[0], n_cat, by_k4=True)
+            u = torch.rand(rows.shape[0], generator=rng, device=rng.device)
+            return k4.k4_draw(rows, u).view(shape[:-1])
+        _count("drawn", shape[:-1].numel(), n_cat)
         # argmax(logits + Gumbel), the Gumbel noise as -log of an Exp(1) draw.
         e = torch.empty(shape, device=rng.device).exponential_(generator=rng)
         return torch.argmax(logits - torch.log(e), dim=-1)
@@ -358,14 +387,14 @@ class Categorical(ExactDensity):
         else:
             v = v.to(torch.int64)
         n_cat = logits.shape[-1]
+        lead = _broadcast(v.shape, logits.shape[:-1])
+        if k4.takes(logits):
+            rows = logits.expand(*lead, n_cat).reshape(-1, n_cat)
+            _count("scored", rows.shape[0], n_cat, by_k4=True)
+            return k4.k4_score(rows, v.expand(lead).reshape(-1)).view(lead)
         in_support = (v >= 0) & (v < n_cat)
-        vs = torch.where(in_support, v, 0)
-        if logits.dim() == 1:
-            lead = vs.shape
-            picked = logits[vs]
-        else:
-            lead = torch.broadcast_shapes(vs.shape, logits.shape[:-1])
-            picked = torch.gather(logits.expand(*lead, n_cat), -1, vs.expand(lead).unsqueeze(-1)).squeeze(-1)
+        vs = torch.where(in_support, v, 0).expand(lead).unsqueeze(-1)
+        picked = torch.gather(logits.expand(*lead, n_cat), -1, vs).squeeze(-1)
         _count("scored", lead.numel(), n_cat)
         # log_softmax(logits)[v], without the normalized table.
         return torch.where(in_support, picked - torch.logsumexp(logits, dim=-1), -math.inf)

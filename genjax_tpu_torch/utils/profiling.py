@@ -36,18 +36,21 @@ The spans of the particle path, by module:
   enqueue of K1 (`fused_logsumexp`, `fused_logsumexp_ess`);
 - set-up, by `record_setup`: `setup.package_import`
   (`genjax_tpu_torch/__init__.py`), `setup.k1_load` (K1's build or load,
-  `ops/logsumexp.py::_kernel`) and `setup.k2_load` (K2's,
+  `ops/logsumexp.py::_kernel`), `setup.k2_load` (K2's,
   `ops/resample.py::_library`, at the first systematic resample on the
-  card).
+  card) and `setup.k4_load` (K4's, `ops/categorical.py::_library`, at the
+  first categorical draw or score K4 takes).
 
 The particle path's counters, kept always (plain dicts and attributes,
 counted from shapes on the host): `inference/particle_filter.py`'s
 `filter_stats` (the steps after each filter's first, and the gate's
 resamples); `distributions/library.py`'s `categorical_stats` (the rows
-`categorical` drew and scored, and the logits `entries` those rows span);
+`categorical` drew and scored, the logits `entries` those rows span, and
+the `k4_rows` of them that K4 took);
 `inference/smc.py`'s `systematic_resample.calls` and the kernels'
 `launches` (`ops.fused_logsumexp`, `ops.fused_logsumexp_ess`,
-`ops.fused_systematic_ancestors`).
+`ops.fused_systematic_ancestors`, `ops.categorical.k4_draw` and
+`.k4_score`).
 
 (The card's measurement script of the port is `genjax_tpu_torch/profiling.py`,
 a different module.)

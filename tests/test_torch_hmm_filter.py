@@ -7,7 +7,10 @@ within 5 standard errors of the exact value and of the reference filter's
 mean, its final states are as close to the exact filtering marginal as
 the reference filter's at the same K, the categorical's counters count
 three rows of 64 a particle-step, and the filter's ESS threshold sets
-the gate.
+the gate. On the card (marked `gpu`, skipped without one; run there with
+`python -m pytest --noconftest -m gpu tests/test_torch_hmm_filter.py`),
+the filter at K = 65536 with every categorical row through K4 meets the
+exact LML and final-state marginal as the CPU runs do.
 """
 
 import dataclasses
@@ -110,7 +113,8 @@ def test_the_port_s_final_states_are_as_close_to_the_exact_marginal_as_the_refer
 def test_the_categorical_counts_three_rows_of_64_a_particle_step():
     """One later step draws a state from its row of the transition table
     and scores it and its observation: K rows drawn, 2 K scored, 3 x 64 x K
-    entries; so does the first step, from the first state's row."""
+    entries, none of them by K4 on the CPU; so does the first step, from
+    the first state's row."""
     ys, rng = _observations(3), torch.Generator().manual_seed(5)
     counted = []
     for steps in (2, 3):
@@ -118,7 +122,7 @@ def test_the_categorical_counts_three_rows_of_64_a_particle_step():
         _filter(256).run(rng, ys[:steps])
         counted.append({k: v - before[k] for k, v in library.categorical_stats.items()})
     one_step = {k: counted[1][k] - counted[0][k] for k in counted[0]}
-    assert one_step == {"drawn": 256, "scored": 2 * 256, "entries": 3 * 64 * 256}
+    assert one_step == {"drawn": 256, "scored": 2 * 256, "entries": 3 * 64 * 256, "k4_rows": 0}
     assert counted[0] == {k: 2 * v for k, v in one_step.items()}
 
 
@@ -137,3 +141,32 @@ def test_hmm_filter_honours_ess_threshold(threshold, fires):
     assert math.isfinite(float(lml))
     if fires is not None:
         assert fired == fires
+
+
+@pytest.mark.gpu
+def test_the_filter_on_k4_s_route_meets_the_exact_values():
+    """At K = 65536 on the card every draw and score of the filter goes
+    through K4 (`k4_rows` grows by 3 K a particle-step); the mean LML lies
+    within 5 standard errors of the exact value and of the float64
+    reference filter's (on the card too), and the final states are as
+    close to the exact marginal as the reference filter's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K4 has no CPU mode")
+    dev, k = torch.device("cuda"), 65536
+    ys = _observations().to(dev)
+    exact_lml, marginal = ref.forward(CONFIG, ys.cpu())
+    pf = hmm_filter(_hmm(), CONFIG["initial_state"], k, CONFIG["resampling"], dev)
+    rng, gen = torch.Generator(device=dev).manual_seed(3), torch.Generator(device=dev).manual_seed(4)
+    port, reference = [], []
+    for _ in range(RUNS):
+        before = library.categorical_stats["k4_rows"]
+        lml, states = pf.run(rng, ys)
+        assert library.categorical_stats["k4_rows"] - before == 3 * k * T
+        port.append((float(lml), ref.total_variation(states, marginal)))
+        r_lml, r_states, _ = ref.bootstrap_filter(CONFIG, gen, ys, k)
+        reference.append((float(r_lml), ref.total_variation(r_states, marginal)))
+    lmls, ref_lmls = [x for x, _ in port], [x for x, _ in reference]
+    assert abs(statistics.mean(lmls) - exact_lml) <= 5 * _se(lmls)
+    assert abs(statistics.mean(lmls) - statistics.mean(ref_lmls)) <= 5 * math.hypot(_se(lmls), _se(ref_lmls))
+    tvs, ref_tvs = [tv for _, tv in port], [tv for _, tv in reference]
+    assert statistics.mean(tvs) <= statistics.mean(ref_tvs) + 5 * math.hypot(_se(tvs), _se(ref_tvs))
